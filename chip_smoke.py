@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's EKF-SLAM fleet replay once on one GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one GPU: the EKF-SLAM
+fleet replay, the 2^20-particle PF replay and the combined PF + SLAM mission.
 
     python3 chip_smoke.py
 
@@ -18,10 +19,32 @@ Phases (any failure exits nonzero; nothing is caught):
   5. the headline replay (``slam_fleet_timelines(combined_slam_cfg(), 60, 128)``
      through ``run_fleet``), timed with CUDA events; K1 and K2 must each have
      launched once per tick;
-  6. one single-mission ``step`` through K3.
-The kernel launch counts are reset just before phase 5 and read after phase
-6. The second-to-last line is a JSON object with each kernel's launches,
-error and times; the last line is the device JSON.
+  6. one single-mission ``step`` through K3;
+  7. each PF kernel against its plain version on the card at N = 2^20, on
+     the 60 s PF mission's bank and tick 0-11 parameters: the generator's
+     uniforms bitwise; K5 ``predict_call_multi`` (nticks < K, rows past
+     nticks zero) and K6 ``predict_call`` (and K6 == K5 at K = 1 bitwise);
+     K7 ``expand_gather_call`` on healthy, degenerate and zero-run weights
+     (ancestors and bank exact; with the jitter within tolerance) and K8
+     ``jitter_moments_call`` (and K7 with the jitter == K8 after K7,
+     bitwise); each timed beside its plain version with CUDA events;
+  8. the PF slice against its plain version: ``run_fast_segmented`` and
+     ``run_fast`` at N = 2^20 over a 10 s mission with every noise std zero
+     but the initial spread, on the card (kernels) and on the CPU (plain
+     versions): mean track within PF_MEAN_TOL, ``updated`` exact; then with
+     the noise on, the two paths' banks on the card bitwise equal;
+  9. the headline PF replay: ``run(..., scheme="systematic",
+     use_pallas=True)`` on the 60 s mission at N = 2^20, timed; K5 must have
+     launched once per segment and K7 once per GPS update; then the per-tick
+     path (``segmented=False``), K6 once per tick;
+ 10. the combined mission ``run_combined`` on ``combined_workload(cfg, 60)``,
+     timed; K1/K2 once per event tick, K5/K7 as in phase 9.
+The kernel launch counts are reset just before each main path (phases 5,
+9, 9b and 10) and read just after it (phase 5's after phase 6). K8 has no
+caller on the single-device path (its TPU callers are the particle-sharded
+update and the TPU's exact-fallback branch), so its count is 0. The
+second-to-last line is a JSON object with each kernel's launches, error and
+times; the last line is the device JSON.
 """
 
 import json
@@ -30,8 +53,15 @@ import sys
 import time
 import warnings
 
+import numpy as np
+
 POSE_TOL = 1e-2   # slice vs plain over 100 ticks (the reference's fleet-vs-dense bound)
 KERNEL_RTOL = 1e-4  # float outputs: max |kernel - plain| <= 1e-4 * max(1, max|plain|)
+# PF slice vs plain over 101 ticks at 2^20 particles: per-particle libm ulps
+# (logf/sincosf vs torch) and a few stratum-boundary ancestor flips move
+# the bank mean by far less than a millimetre
+PF_MEAN_TOL = 1e-3
+PF_N = 1 << 20
 
 
 def card_line() -> str:
@@ -88,6 +118,276 @@ def compare_da(got, want, z_mask, what):
 
 def band_entries(band):
     return band[:, [a * 8 + d for a in range(3) for d in range(3 - a)], :]
+
+
+def bank_err(got, want):
+    """Max |kernel - plain| over a (6, N) bank, yaw compared modulo 2π (an
+    ulp can move a yaw across the ±π seam), and the allowance."""
+    import math
+
+    import torch
+
+    err, tol = max_err(got[0:5], want[0:5])
+    d = torch.remainder(got[5].double() - want[5].double() + math.pi, 2 * math.pi) - math.pi
+    return max(err, float(d.abs().max())), tol
+
+
+def check(err_tol, what):
+    err, tol = err_tol
+    if not err <= tol:
+        raise AssertionError(f"{what}: max err {err:.3e} > {tol:.3e}")
+    return err
+
+
+def pf_kernels_phase(dev, tl_pf):
+    """Phase 7: K5-K8 against their plain versions at N = 2^20."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import resampling as RS
+
+    n = PF_N
+    cfg = PFConfig(particle_count=n)
+    params = PF.make_params(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    parts = PF.init_state(n, params, gen).particles
+    pre = PF._tick_precompute(tl_pf, params, gen)
+    par16, seeds = pre.par16[0:12].contiguous(), pre.seeds[0:12].contiguous()
+    nxy, nyaw = PF._noise_flags(params)
+    res = {}
+
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    for draw in range(4):
+        s = int(seeds[draw])
+        if not torch.equal(PK.uniforms_call(s, n, draw, dev), PK.uniforms(seeds[draw], idx, draw)):
+            raise AssertionError(f"generator: kernel uniforms differ from torch (draw {draw})")
+
+    # K5: nticks < K, the main path's noise flags and all noise rows on
+    par_on = par16.clone()
+    par_on[:, 7:9] = 0.05
+    errs = []
+    for p16, flags in ((par16, (nxy, nyaw)), (par_on, (True, True))):
+        out, sums = PK.predict_call_multi(parts, p16, seeds, *flags, nticks=9)
+        torch.cuda.synchronize()
+        ro, rs = PK.predict_call_multi_reference(parts, p16, seeds, *flags, nticks=9)
+        errs.append(check(bank_err(out, ro), f"K5 bank {flags}"))
+        errs.append(check(max_err(sums, rs), f"K5 sums {flags}"))
+        if not bool((sums[9:] == 0).all()):
+            raise AssertionError("K5: sums rows past nticks are not zero")
+    nt = 10   # the main path's segment: a GPS fix every 10 ticks
+    res["K5"] = dict(err=max(errs), ms=cuda_ms(lambda: PK.predict_call_multi(
+        parts, par16, seeds, nxy, nyaw, nticks=nt), 50), plain_ms=cuda_ms(
+        lambda: PK.predict_call_multi_reference(parts, par16, seeds, nxy, nyaw, nticks=nt), 5),
+        nticks=nt)
+
+    # K6 == K5 at K = 1, bitwise; against its plain version
+    o6, s6 = PK.predict_call(parts, par16[0], seeds[0], nxy, nyaw)
+    o5, s5 = PK.predict_call_multi(parts, par16[:1], seeds[:1], nxy, nyaw)
+    torch.cuda.synchronize()
+    if not (torch.equal(o6, o5) and torch.equal(s6, s5[0])):
+        raise AssertionError("K6 differs from K5 at K = 1")
+    r6, rs6 = PK.predict_call_reference(parts, par16[0], seeds[0], nxy, nyaw)
+    e6 = max(check(bank_err(o6, r6), "K6 bank"), check(max_err(s6, rs6), "K6 sums"))
+    res["K6"] = dict(err=e6, ms=cuda_ms(lambda: PK.predict_call(
+        parts, par16[0], seeds[0], nxy, nyaw), 50), plain_ms=cuda_ms(
+        lambda: PK.predict_call_reference(parts, par16[0], seeds[0], nxy, nyaw), 10))
+
+    # K7 / K8 on the bank after the predict, for healthy, degenerate and
+    # zero-run weights
+    bank = o5
+    t_up = int(pre.do_update.nonzero()[0])
+    gps = pre.gps_xy[t_up]
+    logw = -0.5 * ((gps[0] - bank[0]) ** 2 + (gps[1] - bank[1]) ** 2) / params.meas_var
+    w_healthy = RS.normalize_weights_det(logw)
+    w_deg = torch.zeros(n, device=dev)
+    w_deg[777] = 1.0
+    w_zr = torch.zeros(n, device=dev)
+    w_zr[:64] = 1.0
+    w_zr[-64:] = 1.0
+    sd = torch.sqrt(params.res_noise_cov)
+    jsd = torch.stack([sd[0], sd[1], sd[5]]).contiguous()
+    seed = pre.noise_seeds[t_up]
+    e7 = e8 = 0.0
+    for name, w in (("healthy", w_healthy), ("degenerate", w_deg), ("zero-run", w_zr / 128)):
+        m_cum = RS.systematic_counts(w, pre.res_u[t_up])
+        got = PK.expand_gather_call(m_cum, bank)
+        torch.cuda.synchronize()
+        if not torch.equal(got, PK.expand_gather_call_reference(m_cum, bank)):
+            raise AssertionError(f"K7 ({name}): gathered bank differs from the plain version")
+        fused, s7 = PK.expand_gather_call(m_cum, bank, jsd, seed)
+        rf, rs7 = PK.expand_gather_call_reference(m_cum, bank, jsd, seed)
+        e7 = max(e7, check(bank_err(fused, rf), f"K7 jitter bank ({name})"),
+                 check(max_err(s7, rs7), f"K7 jitter sums ({name})"))
+        two, s8 = PK.jitter_moments_call(got, jsd, seed)
+        torch.cuda.synchronize()
+        if not (torch.equal(fused, two) and torch.equal(s7, s8)):
+            raise AssertionError(f"K7 with the jitter differs from K8 after K7 ({name})")
+        r8, rs8 = PK.jitter_moments_call_reference(got, jsd, seed)
+        e8 = max(e8, check(bank_err(two, r8), f"K8 bank ({name})"),
+                 check(max_err(s8, rs8), f"K8 sums ({name})"))
+        if name == "healthy":
+            m_h, g_h = m_cum, got
+    res["K7"] = dict(err=e7, ms=cuda_ms(lambda: PK.expand_gather_call(m_h, bank, jsd, seed), 50),
+                     plain_ms=cuda_ms(lambda: PK.expand_gather_call_reference(
+                         m_h, bank, jsd, seed), 10))
+    res["K8"] = dict(err=e8, ms=cuda_ms(lambda: PK.jitter_moments_call(g_h, jsd, seed), 50),
+                     plain_ms=cuda_ms(lambda: PK.jitter_moments_call_reference(
+                         g_h, jsd, seed), 10))
+    for k, v in res.items():
+        print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms"
+              + (f" (nticks {v['nticks']})" if "nticks" in v else ""), flush=True)
+    print("generator: kernel uniforms bitwise equal to torch; K6 == K5(K=1) and "
+          "K7(jitter) == K8(K7) bitwise; K7 ancestors exact on healthy, degenerate "
+          "and zero-run weights", flush=True)
+    return res
+
+
+def pf_slice_phase(dev, tl10):
+    """Phase 8: the PF kernel paths against their plain versions (CPU)."""
+    import dataclasses
+
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(PFConfig(particle_count=PF_N), motion_cov=(0.0,) * 6,
+                              res_noise_cov=(0.0,) * 6)
+    worst = 0.0
+    for runner in (PF.run_fast_segmented, PF.run_fast):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            gen = torch.Generator(device=d).manual_seed(5)
+            _, out = runner(tl10.to(d), PF.make_params(cfg, device=d), cfg, generator=gen)
+            outs.append({k: v.cpu() for k, v in out.items()})
+        if not torch.equal(outs[0]["updated"], outs[1]["updated"]):
+            raise AssertionError(f"{runner.__name__}: updated differs from the plain version")
+        err = float((outs[0]["mean"].double() - outs[1]["mean"].double()).abs().max())
+        if not err <= PF_MEAN_TOL:
+            raise AssertionError(f"{runner.__name__}: mean track differs by {err:.3e}")
+        worst = max(worst, err)
+    cfg_on = PFConfig(particle_count=PF_N)
+    banks = []
+    for runner in (PF.run_fast_segmented, PF.run_fast):
+        gen = torch.Generator(device=dev).manual_seed(6)
+        fin, _ = runner(tl10.to(dev), PF.make_params(cfg_on, device=dev), cfg_on, generator=gen)
+        banks.append(fin.particles)
+    if not torch.equal(banks[0], banks[1]):
+        raise AssertionError("noise on: run_fast_segmented bank differs from run_fast's")
+    print(f"PF slice N={PF_N} T={tl10.num_ticks}: kernels vs plain mean track max err "
+          f"{worst:.3e}, updated equal; noise on: segmented bank == per-tick bank bitwise "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return worst
+
+
+def timed(fn):
+    """(result, device ms, host s) of fn() between CUDA events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    r = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return r, start.elapsed_time(end), time.perf_counter() - t0
+
+
+def pf_main_paths(dev, cfg, params, counters):
+    """Phases 7-10 on the combined workload's missions (``cfg``/``params``
+    the SLAM half's); returns (phase-7 kernel results, the PF headline's
+    launch counts, the per-tick path's launch counts)."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.io.workloads import combined_workload
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.parallel import fleet as FL
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tls_np, tlp_np = combined_workload(cfg, 60.0)
+    tl_pf = tlp_np.to(dev)
+    pk = pf_kernels_phase(dev, tl_pf)
+    pf_slice_phase(dev, tlp_np.map(lambda x: x[:101]))
+
+    n = PF_N
+    pf_cfg = PFConfig(particle_count=n)
+    pf_params = PF.make_params(pf_cfg, device=dev)
+    T_pf = tl_pf.num_ticks
+    upd = (tlp_np.channels["gps"].fresh & (tlp_np.channels["diving"].value[:, 0] < 0.5))
+    n_upd = int(upd.sum())
+    n_seg = len(PF._segment_plan(upd, 12))
+    PF.run(tl_pf.map(lambda x: x[:40]), pf_params, pf_cfg, scheme="systematic",
+           use_pallas=True)                                     # warm-up
+    pf_counters = [PK.predict_call_multi, PK.predict_call, PK.expand_gather_call,
+                   PK.jitter_moments_call]
+    for f in pf_counters:
+        f.launches = 0
+    (fin_pf, out_pf), pf_ms, pf_wall = timed(lambda: PF.run(
+        tl_pf, pf_params, pf_cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        scheme="systematic", use_pallas=True))
+    pf_launch = {f.__name__: f.launches for f in pf_counters}
+    if pf_launch["predict_call_multi"] != n_seg or pf_launch["expand_gather_call"] != n_upd:
+        raise AssertionError(f"PF headline: launches {pf_launch}, expected K5 {n_seg} "
+                             f"(segments) and K7 {n_upd} (GPS updates)")
+    for name, x in (("bank", fin_pf.particles), ("mean", out_pf["mean"]), ("cov", out_pf["cov"])):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"PF headline: non-finite {name}")
+    gt_end = tlp_np.channels["odom"].value[-1, 0:2]
+    xy_err = float(np.linalg.norm(out_pf["mean"][-1, 0:2].cpu().numpy() - gt_end))
+    if not xy_err < 1.0:
+        raise AssertionError(f"PF headline: final xy error {xy_err:.3f} m against ground truth")
+    duration = float(tlp_np.ticks[-1])
+    print(f"PF headline N={n} T={T_pf} ({n_seg} segments, {n_upd} GPS updates): "
+          f"{pf_ms:.2f} ms on the card ({pf_wall:.3f} s host), {pf_ms * 1e3 / T_pf:.1f} us/tick, "
+          f"{n * T_pf / (pf_ms / 1e3):.4g} particle updates/s, real-time factor "
+          f"{duration / (pf_ms / 1e3):.1f}x; final xy error vs ground truth {xy_err:.3f} m; "
+          f"launches {pf_launch}", flush=True)
+
+    # 9b. the per-tick path (K6 every tick)
+    for f in pf_counters:
+        f.launches = 0
+    (_fin, out_pt), pt_ms, _w = timed(lambda: PF.run(
+        tl_pf, pf_params, pf_cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        scheme="systematic", use_pallas=True, segmented=False))
+    pt_launch = {f.__name__: f.launches for f in pf_counters}
+    if pt_launch["predict_call"] != T_pf or pt_launch["expand_gather_call"] != n_upd:
+        raise AssertionError(f"PF per-tick path: launches {pt_launch}")
+    if not torch.equal(out_pt["mean"], out_pf["mean"]):
+        raise AssertionError("PF per-tick path: mean track differs from the segmented path")
+    print(f"PF per-tick path: {pt_ms:.2f} ms ({pt_ms * 1e3 / T_pf:.1f} us/tick), mean track "
+          f"bitwise the segmented path's; launches {pt_launch}", flush=True)
+
+    # 10. the combined mission
+    tl_s = tls_np.to(dev)
+    ev_any = tls_np.events["mbes"].mask.any(axis=(0, 2))
+    ev_any[-1] = True
+    n_ev = int(ev_any.sum())
+    for f in counters + pf_counters:
+        f.launches = 0
+    val, cb_ms, cb_wall = timed(lambda: FL.run_combined(
+        tl_s, tl_pf, params, cfg, pf_params, pf_cfg, n,
+        generator=torch.Generator(device=dev).manual_seed(0)))
+    cb_launch = {f.__name__: f.launches for f in counters + pf_counters}
+    if (cb_launch["da_lanes"] != n_ev or cb_launch["sequential_update_fleet"] != n_ev
+            or cb_launch["predict_call_multi"] != n_seg
+            or cb_launch["expand_gather_call"] != n_upd):
+        raise AssertionError(f"combined: launches {cb_launch}, expected K1/K2 {n_ev} "
+                             f"(event ticks), K5 {n_seg}, K7 {n_upd}")
+    if not bool(torch.isfinite(val)):
+        raise AssertionError("combined: non-finite result")
+    print(f"combined mission (SLAM B=1 L={cfg.max_landmarks} M={cfg.max_obs}, {n_ev} event ticks of "
+          f"{tls_np.ticks.shape[1]}; PF N={n}): {cb_ms:.1f} ms on the card "
+          f"({cb_wall:.2f} s host), real-time factor {duration / (cb_ms / 1e3):.1f}x; "
+          f"value {float(val):.4f}; launches {cb_launch}", flush=True)
+
+    return pk, pf_launch, pt_launch
 
 
 def main():
@@ -296,6 +596,9 @@ def main():
           f"mu err vs dense {err:.3e}; launches K1 {launches[0]} K2 {launches[1]} "
           f"K3 {launches[2]}", flush=True)
 
+    # --- 7-10. the PF kernels, slice, headline and the combined mission ------
+    pk, pf_launch, pt_launch = pf_main_paths(dev, cfg, params, counters)
+
     kernels = [
         dict(name="da_lanes", route="cuda",
              source="smarc_navigation_tpu_torch/csrc/slam_da.cu",
@@ -310,6 +613,26 @@ def main():
              source="smarc_navigation_tpu_torch/csrc/slam_update.cu",
              replaces="smarc_navigation_tpu/ops/slam_kernels.py:213",
              launches=launches[2], max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms),
+        dict(name="predict_call_multi", route="cuda",
+             source="smarc_navigation_tpu_torch/csrc/pf_predict.cu",
+             replaces="smarc_navigation_tpu/ops/pf_kernels.py:820",
+             launches=pf_launch["predict_call_multi"], max_abs_err=pk["K5"]["err"],
+             ms=pk["K5"]["ms"], plain_ms=pk["K5"]["plain_ms"]),
+        dict(name="predict_call", route="cuda",
+             source="smarc_navigation_tpu_torch/csrc/pf_predict.cu",
+             replaces="smarc_navigation_tpu/ops/pf_kernels.py:865",
+             launches=pt_launch["predict_call"], max_abs_err=pk["K6"]["err"],
+             ms=pk["K6"]["ms"], plain_ms=pk["K6"]["plain_ms"]),
+        dict(name="expand_gather_call", route="cuda",
+             source="smarc_navigation_tpu_torch/csrc/pf_resample.cu",
+             replaces="smarc_navigation_tpu/ops/pf_kernels.py:562",
+             launches=pf_launch["expand_gather_call"], max_abs_err=pk["K7"]["err"],
+             ms=pk["K7"]["ms"], plain_ms=pk["K7"]["plain_ms"]),
+        dict(name="jitter_moments_call", route="cuda",
+             source="smarc_navigation_tpu_torch/csrc/pf_resample.cu",
+             replaces="smarc_navigation_tpu/ops/pf_kernels.py:472",
+             launches=pf_launch["jitter_moments_call"], max_abs_err=pk["K8"]["err"],
+             ms=pk["K8"]["ms"], plain_ms=pk["K8"]["plain_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

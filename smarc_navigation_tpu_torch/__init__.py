@@ -6,15 +6,20 @@ function here keeps its counterpart's module path, argument order and
 same inputs. This package imports ``torch``, ``numpy`` and ``scipy`` only.
 
 Slice 1 covers the EKF-SLAM fleet replay (``models.ekf_slam.run_fleet``)
-and the single-mission ``step``/``run``; its three kernels are hand-written
-CUDA C++ for Hopper (``csrc/``), built at first use by ``_build.py``.
+and the single-mission ``step``/``run``; slice 2 the particle filter
+(``models.particle_filter``: dense path and the kernel paths
+``run_fast_segmented``/``run_fast``), the event-compacted SLAM replay
+``run_fleet_compact`` and the combined mission ``parallel.fleet.run_combined``.
+Their seven kernels are hand-written CUDA C++ for Hopper (``csrc/``), built
+at first use by ``_build.py``.
 
 Layout (same paths as the reference):
   utils/     geometry, linalg
-  io/        numpy mission simulator, headline workload builders
-  ops/       timeline, assignment, slam_da_kernels (K1), slam_kernels (K2/K3)
-  parallel/  fleet.batch_timelines
-  models/    ekf_slam
+  io/        numpy mission simulator, the headline and combined workloads
+  ops/       timeline, assignment, resampling, slam_da_kernels (K1),
+             slam_kernels (K2/K3), pf_kernels (K5-K8)
+  parallel/  fleet.batch_timelines, fleet.run_combined
+  models/    ekf_slam, particle_filter
 """
 
 import torch as _torch

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>.so``, then loaded with
 ``ctypes``. The build runs at first use, from the sources in the package
 only, and again whenever a source's sha256 (or its flags) changes — the
-library's ``.srchash`` stamp records what it was built from, never its
-mtime (a checkout gives every file the same mtime). ``nvcc``'s resource
+library's ``.srchash`` stamp records what it was built from (the source,
+the shared ``csrc/*.cuh`` headers and the flags), never its mtime (a
+checkout gives every file the same mtime). ``build_all`` starts one
+``nvcc`` per source at once and waits for all. ``nvcc``'s resource
 report (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
 library as ``lib<name>.log``.
 """
@@ -26,9 +28,11 @@ BUILD = PKG / "build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-library extra flags: the DA kernel's gate/cost arithmetic rounds every
-# product (no FMA contraction), like the plain PyTorch version's elementwise ops
-EXTRA_FLAGS = {"slam_da": ["-fmad=false"], "slam_update": []}
+# per-library extra flags: the DA kernel's gate/cost arithmetic and the PF
+# kernels' motion, jitter and generator arithmetic round every product (no
+# FMA contraction), like the plain PyTorch versions' elementwise ops
+EXTRA_FLAGS = {"slam_da": ["-fmad=false"], "slam_update": [],
+               "pf_predict": ["-fmad=false"], "pf_resample": ["-fmad=false"]}
 
 _libs: dict = {}
 
@@ -49,27 +53,44 @@ def _command(name: str, out: Path) -> list:
 
 def _src_hash(name: str) -> str:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(ARCH_FLAGS + BASE_FLAGS + EXTRA_FLAGS[name]).encode())
     return h.hexdigest()
+
+
+def _start(name: str):
+    """Start compiling ``csrc/<name>.cu`` unless the cached library matches
+    its source hash: None when cached, else (process, tmp path, lib, stamp,
+    hash)."""
+    lib = BUILD / f"lib{name}.so"
+    stamp = BUILD / f"lib{name}.so.srchash"
+    want = _src_hash(name)
+    if lib.exists() and stamp.exists() and stamp.read_text().strip() == want:
+        return None
+    BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD / f"lib{name}.{os.getpid()}.tmp.so"
+    proc = subprocess.Popen(_command(name, tmp), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, lib, stamp, want
+
+
+def _finish(name: str, job) -> Path:
+    proc, tmp, lib, stamp, want = job
+    out, err = proc.communicate()
+    (BUILD / f"lib{name}.log").write_text(out + err)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{err}")
+    os.replace(tmp, lib)
+    stamp.write_text(want)
+    return lib
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the cached library matches its
     source hash; returns the library path."""
-    lib = BUILD / f"lib{name}.so"
-    stamp = BUILD / f"lib{name}.so.srchash"
-    want = _src_hash(name)
-    if lib.exists() and stamp.exists() and stamp.read_text().strip() == want:
-        return lib
-    BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD / f"lib{name}.{os.getpid()}.tmp.so"
-    proc = subprocess.run(_command(name, tmp), capture_output=True, text=True)
-    (BUILD / f"lib{name}.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    stamp.write_text(want)
-    return lib
+    job = _start(name)
+    return BUILD / f"lib{name}.so" if job is None else _finish(name, job)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -82,11 +103,14 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> dict:
-    """Build every kernel library; returns {name: seconds}."""
+    """Build every kernel library, one nvcc per source all started together;
+    returns {name: seconds until that library was ready}."""
+    t0 = time.perf_counter()
+    jobs = {name: _start(name) for name in EXTRA_FLAGS}
     times = {}
-    for name in EXTRA_FLAGS:
-        t0 = time.perf_counter()
-        build(name)
+    for name, job in jobs.items():
+        if job is not None:
+            _finish(name, job)
         times[name] = time.perf_counter() - t0
     return times
 

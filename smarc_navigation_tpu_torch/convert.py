@@ -9,9 +9,11 @@ import numpy as np
 import torch
 
 from .models.ekf_slam import SlamParams, SlamState
+from .models.particle_filter import PFParams, PFState
 from .ops.timeline import timeline_from_numpy
 
-__all__ = ["slam_params_from_numpy", "slam_state_from_numpy", "timeline_from_numpy"]
+__all__ = ["slam_params_from_numpy", "slam_state_from_numpy", "timeline_from_numpy",
+           "pf_params_from_numpy", "pf_state_from_numpy"]
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -30,3 +32,17 @@ def slam_state_from_numpy(d: dict, device) -> SlamState:
     kw["n_active"] = kw["n_active"].to(torch.int32)
     kw["active"] = kw["active"].to(torch.bool)
     return SlamState(**kw)
+
+
+def pf_params_from_numpy(d: dict, device) -> PFParams:
+    """PFParams from a dict of numpy arrays keyed by field name."""
+    return PFParams(**{k: _tensor(d[k], device).to(torch.float32) for k in PFParams._fields})
+
+
+def pf_state_from_numpy(d: dict, device, generator: torch.Generator | None = None) -> PFState:
+    """PFState from a dict with ``particles`` (6, N) and ``t_prev``; the
+    reference's PRNG key has no counterpart and is ignored, the port's
+    generator is ``generator`` (a seed-0 one on ``device`` when None)."""
+    g = generator if generator is not None else torch.Generator(device=device).manual_seed(0)
+    return PFState(particles=_tensor(d["particles"], device).to(torch.float32),
+                   generator=g, t_prev=_tensor(d["t_prev"], device).to(torch.float32))

@@ -1,6 +1,7 @@
 """Headline workload builders (numpy; port of the reference's
 ``io/workloads.py``): the SLAM missions at the 10 Hz ``ekf_slam.launch``
-tick with simulated MBES detections that the fleet replay is timed on."""
+tick with simulated MBES detections that the fleet replay is timed on, and
+the combined PF + SLAM mission."""
 
 from __future__ import annotations
 
@@ -73,3 +74,16 @@ def slam_fleet_timelines(cfg: EKFSlamConfig, duration: float, B: int):
     tls = [slam_mission_timeline(cfg, duration, seed=b) for b in range(min(B, 16))]
     tls = (tls * ((B + len(tls) - 1) // len(tls)))[:B]
     return fleet.batch_timelines(tls)
+
+
+def combined_workload(slam_cfg: EKFSlamConfig, duration: float, pf_seed: int = 3):
+    """The combined north-star inputs, numpy-leaved: (B=1 SLAM timeline, PF
+    timeline) of one mission replayed through both estimators."""
+    from ..io import sim
+    from ..models import particle_filter as pf
+
+    tl_slam = slam_fleet_timelines(slam_cfg, duration, 1)
+    m = sim.simulate(
+        sim.MissionSpec(duration_s=duration, seed=pf_seed, gps_surface_z=-100.0)
+    )
+    return tl_slam, pf.pf_timeline(m, freq_hz=10.0)

@@ -9,13 +9,14 @@ and shapes. The fleet replay ``run_fleet`` is a Python loop over ticks whose
 every event pass runs the data-association kernel (K1,
 ``ops.slam_da_kernels.da_lanes``) and the sequential-update kernel (K2,
 ``ops.slam_kernels.sequential_update_fleet``); ``step``'s kernel branch runs
-K3 (``ops.slam_kernels.sequential_update``). Each wrapper launches its CUDA
-kernel for CUDA tensors and takes its plain PyTorch version for CPU tensors.
+K3 (``ops.slam_kernels.sequential_update``). ``run_fleet_compact`` runs the
+same event pass on event ticks only, with the predicts in between composed
+beforehand. Each wrapper launches its CUDA kernel for CUDA tensors and takes
+its plain PyTorch version for CPU tensors.
 
-Not in this slice (see ROADMAP.md Queue 1): the marginal covariance modes
-and mission sharding (``run_fleet(device_mesh=...)``) raise
-``NotImplementedError``; ``run_fleet_compact`` and ``run_fleet_marginal``
-are absent.
+Not yet ported (see ROADMAP.md Queue 1): the marginal covariance modes and
+mission sharding (``run_fleet(device_mesh=...)``) raise
+``NotImplementedError``; ``run_fleet_marginal`` is absent.
 """
 
 from __future__ import annotations
@@ -684,3 +685,138 @@ def run_fleet(
         outs.append(out)
         state = st
     return state, _stack_outputs(outs)
+
+
+def _segmented_affine_scan(A: torch.Tensor, R: torch.Tensor, reset: torch.Tensor):
+    """Inclusive segmented prefix composition along axis 1 of (B, T, 6, 6)
+    motion Jacobians A and noises R under the affine-covariance monoid
+    (A2,R2)∘(A1,R1) = (A2 A1, A2 R1 A2ᵀ + R2); ``reset`` (T,) starts a fresh
+    segment at a tick. log₂T doubling passes of batched 6×6 products
+    (Hillis-Steele), no loop over T."""
+    T = A.shape[1]
+    r = reset.clone()
+    d = 1
+    while d < T:
+        Ax, Rx, rx = A[:, :-d], R[:, :-d], r[:-d]          # element t - d
+        Ay, Ry, ry = A[:, d:], R[:, d:], r[d:]             # element t
+        m = ry[None, :, None, None]
+        Ac = torch.where(m, Ay, Ay @ Ax)
+        Rc = torch.where(m, Ry, Ay @ Rx @ Ay.transpose(-1, -2) + Ry)
+        A = torch.cat([A[:, :d], Ac], 1)
+        R = torch.cat([R[:, :d], Rc], 1)
+        r = torch.cat([r[:d], rx | ry])
+        d *= 2
+    return A, R
+
+
+def _rfc_core(tl, params, e_idx, seg_of, ev_any, cfg, names):
+    """Core of ``run_fleet_compact`` (e_idx, seg_of, ev_any host numpy)."""
+    od = tl.channels["odom"]
+    B, T = od.valid.shape
+    dt, dev = params.R.dtype, od.value.device
+    pos = od.value[..., 0:3].to(dt)
+    if od.value.shape[-1] >= 13:
+        att = wrap_angle(rpy_from_quat(od.value[..., 3:7])).to(dt)
+    else:
+        att = wrap_angle(od.value[..., 3:6]).to(dt)
+    # per-tick odometric increments (all ticks valid: caller precondition)
+    u = pos - torch.cat([pos.new_zeros(B, 1, 3), pos[:, :-1]], 1)
+    U_cum = torch.cumsum(u, 1)
+
+    A = torch.zeros((B, T, 6, 6), dtype=dt, device=dev)
+    A[..., 0:3, 0:3] = torch.eye(3, dtype=dt, device=dev)
+    A[..., 0:3, 3:6] = _motion_jacobian(att, u)
+    R = params.R.expand(B, T, 6, 6)
+    # segment boundaries sit just after each event tick: prefix[t] is the
+    # composition since the last event
+    reset = torch.as_tensor(np.concatenate([[True], ev_any[:-1]]), device=dev)
+    A_seg, R_seg = _segmented_affine_scan(A, R, reset)
+
+    e = torch.as_tensor(e_idx, dtype=torch.int64, device=dev)
+    E = e.shape[0]
+    Ue = U_cum[:, e]                                           # (B, E, 3)
+    u_seg = Ue - torch.cat([Ue.new_zeros(B, 1, 3), Ue[:, :-1]], 1)
+    att_e = att[:, e]
+    a8e = torch.zeros((B, E, 8, 16), dtype=dt, device=dev)
+    a8e[..., 0:6, 0:6] = A_seg[:, e]
+    a8e[..., 6, 6] = 1.0
+    a8e[..., 7, 7] = 1.0
+    a8e[..., 0:6, 8:14] = R_seg[:, e]
+
+    L = cfg.max_landmarks
+    s0 = init_state(cfg, dtype=dt, device=dev)
+    st = SlamState(*(x.expand((B,) + x.shape).contiguous() for x in s0))
+    band = initial_band(s0.Sigma, L).expand(B, 24, L).contiguous()
+    ev = {n: (tl.events[n].value[:, e], tl.events[n].mask[:, e]) for n in names}
+
+    oev = []
+    for k in range(E):
+        mu = torch.cat([st.mu[:, 0:3] + u_seg[:, k], att_e[:, k], st.mu[:, 6:]], 1)
+        st = SlamState(mu=mu, Sigma=st.Sigma, active=st.active, n_active=st.n_active,
+                       mu_auv_odom=st.mu_auv_odom + u_seg[:, k])
+        a8 = a8e[:, k].contiguous()
+        out = {}
+        for n in names:
+            z, m = ev[n][0][:, k].contiguous(), ev[n][1][:, k].contiguous()
+            st, matched, band = da_lanes_pass(
+                st, z, m, params, cfg, MBES if n == "mbes" else FLS, a8=a8, band=band)
+            a8 = None
+            out["matched_" + n] = matched
+        out["mu"] = st.mu[:, 0:6]
+        out["n_active"] = st.n_active
+        oev.append(out)
+    oev = _stack_outputs(oev)
+
+    # per-tick outputs: event slices + odometric deltas between events
+    seg = torch.as_tensor(seg_of, dtype=torch.int64, device=dev)
+    mu_e = oev["mu"]                                           # (E, B, 6)
+    pos_ext = torch.cat([s0.mu[0:3].expand(1, B, 3), mu_e[:, :, 0:3]], 0)
+    base_U = torch.cat([Ue.new_zeros(1, B, 3), Ue.transpose(0, 1)], 0)
+    U_t = U_cum.transpose(0, 1)                                # (T, B, 3)
+    mu_pos_t = pos_ext[seg] + (U_t - base_U[seg])
+    att_ext = torch.cat([s0.mu[3:6].expand(1, B, 3), mu_e[:, :, 3:6]], 0)
+    evt = torch.as_tensor(ev_any, device=dev)[:, None, None]
+    att_out = torch.where(evt, att_ext[seg], att.transpose(0, 1))
+    out = {"mu": torch.cat([mu_pos_t, att_out], -1)}
+    na_ext = torch.cat([s0.n_active.expand(1, B), oev["n_active"]], 0)
+    out["n_active"] = na_ext[seg]
+    for n in names:
+        me = oev["matched_" + n]                               # (E, B, M)
+        full = torch.full((T,) + me.shape[1:], -1, dtype=me.dtype, device=dev)
+        full[e] = me
+        out["matched_" + n] = full
+    return st, out
+
+
+def run_fleet_compact(
+    batched_timeline,
+    params: SlamParams,
+    cfg: EKFSlamConfig = EKFSlamConfig(),
+):
+    """Event-compacted fleet replay: the event pass (K1 + K2) runs on EVENT
+    ticks only.
+
+    With valid odometry at every tick the motion predict between events is
+    state-independent (attitude absolute, position increment odometric), so
+    the per-tick (A_t, R_t) compose outside the event loop (a segmented
+    prefix scan, log₂T batched passes) and each event tick consumes ONE
+    composed a8 with a full 6×6 R̃. Per-tick outputs are rebuilt from the
+    event outputs plus cumulative odometry, so the output contract is
+    ``run_fleet``'s; values agree with it up to f32 re-association.
+
+    Falls back to ``run_fleet`` when any odometry tick is invalid (an invalid
+    tick rebroadcasts the post-update attitude into the next predict, which
+    cannot be precomposed), with the reference's rule (``ekf_slam.py:1305``)."""
+    tl = batched_timeline
+    od = tl.channels["odom"]
+    if not bool(od.valid.all()):
+        return run_fleet(tl, params, cfg)
+    T = tl.ticks.shape[1]
+    names = tuple(n for n in ("mbes", "fls") if n in tl.events)
+    ev_any = np.zeros(T, bool)
+    for n in names:
+        ev_any |= tl.events[n].mask.any(dim=2).any(dim=0).cpu().numpy()
+    ev_any[T - 1] = True   # final virtual event carries the tail predicts
+    e_idx = np.nonzero(ev_any)[0]
+    seg_of = np.searchsorted(e_idx, np.arange(T), side="right")
+    return _rfc_core(tl, params, e_idx, seg_of, ev_any, cfg, names)

@@ -1,9 +1,16 @@
-"""Mission fleets (slice 1: ``batch_timelines`` only)."""
+"""Mission fleets: ``batch_timelines`` and the combined PF + SLAM mission
+``run_combined``. The SLAM+PF mission fleet (``run_fleet``/``fleet_step``/
+``init_fleet``) and the raycast fleet are not ported yet (ROADMAP.md
+Queue 1)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..configs import EKFSlamConfig, PFConfig
+from ..models import ekf_slam as slam
+from ..models import particle_filter as pf
 from ..ops.timeline import Timeline
 
 
@@ -35,3 +42,27 @@ def batch_timelines(timelines: list) -> Timeline:
     leaves_per_tl = [tl.leaves() for tl in timelines]
     stacked = iter([np.stack(xs, axis=0) for xs in zip(*leaves_per_tl)])
     return first.map(lambda _x: next(stacked))
+
+
+def run_combined(
+    tl_slam: Timeline,            # batched (B=1) SLAM timeline, tensor leaves
+    tl_pf: Timeline,              # single-mission PF timeline, tensor leaves
+    slam_params: slam.SlamParams,
+    slam_cfg: EKFSlamConfig,
+    pf_params: pf.PFParams,
+    pf_cfg: PFConfig,
+    n_particles: int,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """One mission replayed through both estimators on their kernel paths:
+    the particle bank through the segmented multi-tick predict
+    (``particle_filter.run`` with ``use_pallas=True``: K5 + K7) and the
+    EKF-SLAM filter through the event-compacted path
+    (``ekf_slam.run_fleet_compact``: K1 + K2 on event ticks only). Returns
+    one scalar that depends on both outputs."""
+    _final_pf, out_pf = pf.run(
+        tl_pf, pf_params, pf_cfg, n_particles=n_particles, generator=generator,
+        scheme="systematic", use_pallas=True)
+    final_s, _out_s = slam.run_fleet_compact(tl_slam, slam_params, slam_cfg)
+    return (torch.sum(out_pf["mean"]) + torch.sum(final_s.mu[:, 0:6])
+            + torch.sum(final_s.n_active))

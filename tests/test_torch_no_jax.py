@@ -1,6 +1,8 @@
-"""The port stands alone: it runs with JAX and flax blocked, and its numpy
-host code (simulator, timeline builders, fleet batching) produces arrays
-bitwise equal to the reference package's."""
+"""The port stands alone: it runs with JAX and flax blocked (the SLAM fleet
+replay, the PF kernel path and the combined mission, at a tiny size on the
+CPU), and its numpy host code (simulator, timeline construction, fleet batching,
+the PF and combined workloads) produces arrays bitwise equal to the
+reference package's."""
 
 import dataclasses
 import os
@@ -19,8 +21,11 @@ for name in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"):
 import dataclasses
 import torch
 import smarc_navigation_tpu_torch
+from smarc_navigation_tpu_torch.configs import PFConfig
 from smarc_navigation_tpu_torch.io import workloads
 from smarc_navigation_tpu_torch.models import ekf_slam
+from smarc_navigation_tpu_torch.models import particle_filter as pf
+from smarc_navigation_tpu_torch.parallel import fleet
 
 assert torch.backends.cuda.matmul.allow_tf32 is False
 cfg = dataclasses.replace(workloads.combined_slam_cfg(), max_landmarks=16)
@@ -28,6 +33,13 @@ tl = workloads.slam_fleet_timelines(cfg, 0.4, 2).to("cpu")
 assert tl.ticks.shape == (2, 5), tl.ticks.shape
 final, out = ekf_slam.run_fleet(tl, ekf_slam.make_params(cfg), cfg)
 assert out["mu"].shape == (5, 2, 6) and bool(torch.isfinite(final.Sigma).all())
+tl_s, tl_p = workloads.combined_workload(cfg, 3.0)
+pcfg = PFConfig(particle_count=1024)
+fin, pout = pf.run_fast_segmented(tl_p.to("cpu"), pf.make_params(pcfg), pcfg)
+assert pout["mean"].shape == (31, 6) and bool(torch.isfinite(fin.particles).all())
+val = fleet.run_combined(tl_s.to("cpu"), tl_p.to("cpu"), ekf_slam.make_params(cfg), cfg,
+                         pf.make_params(pcfg), pcfg, 1024)
+assert bool(torch.isfinite(val)), val
 loaded = sorted(m for m, v in sys.modules.items() if v is not None and
                 m.split(".")[0] in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"))
 assert not loaded, loaded
@@ -82,6 +94,11 @@ def test_host_code_bitwise_equal_to_reference(seed):
     tl = workloads.slam_fleet_timelines(cfg, 12.0, 3 + seed)
     jtl = jworkloads.slam_fleet_timelines(cfg, 12.0, 3 + seed)
     _assert_bitwise(_flat(tl), _flat(jtl))
+
+    # the combined mission's SLAM and PF timelines (pf_timeline inside)
+    for a, b in zip(workloads.combined_workload(cfg, 12.0, pf_seed=seed),
+                    jworkloads.combined_workload(cfg, 12.0, pf_seed=seed)):
+        _assert_bitwise(_flat(a), _flat(b))
 
 
 def test_batch_timelines_checks_every_timeline():
