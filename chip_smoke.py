@@ -1,25 +1,44 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main paths once on one GPU: the EKF-SLAM
-fleet replay, the 2^20-particle PF replay and the combined PF + SLAM mission.
+fleet replay at the headline shape (L=64) and at the reference-tuned L=256
+shape in both covariance semantics, the 2^20-particle PF replay and the
+combined PF + SLAM mission.
 
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero; nothing is caught):
   1. a CUDA device must be present; print the card's name and power limit;
-  2. build the kernels from ``smarc_navigation_tpu_torch/csrc`` with nvcc;
+  2. build the kernels from ``smarc_navigation_tpu_torch/csrc`` with nvcc,
+     one process per source, all started together;
   3. each kernel against its plain PyTorch version on the card, at the
      headline shapes (B=128 missions, L=64 landmark slots, M=8 detections,
      D=198), on the state of the real headline fleet after 50 ticks: K1
      ``da_lanes`` in MBES form (with predict and band) and in FLS form, K2
      ``sequential_update_fleet`` (with a8, band, cand), K3
      ``sequential_update``; discrete outputs exact, floats within 1e-4 of
-     each output's scale; each kernel timed beside its plain version;
+     each output's scale;
+ 3b. the slice-3 kernels against their plain versions at L=256, B=32
+     (D=774), on the states of the reference-tuned fleet after 50 ticks in
+     each covariance semantics: K1 in its pose-rows form (MBES with predict
+     and band, FLS), K4 ``sequential_update_marginal_fleet`` (dim 3 and 2,
+     with and without a8), K11 ``hungarian_lanes`` on the DA stage's own
+     (B, L+M, M) cost tables, K2 at D=774 (one-kernel schedule) and K12
+     ``symmetric_downdate`` on K2's phase-1 factors; K2's streamed schedule
+     against its one-kernel schedule (μ and band bitwise, Σ exactly
+     symmetric); K12 timed beside ``torch.baddbmm`` computing Σ − ½(UᵀV +
+     VᵀU) (the yardstick; the port never calls it);
   4. the slice against its plain version: ``run_fleet`` of 8 missions over
      100 ticks on the card (kernels) and on the CPU (plain versions);
+ 4b. the same at L=256 for ``run_fleet(update_mode="marginal")`` and the
+     full ``run_fleet`` (streamed schedule);
   5. the headline replay (``slam_fleet_timelines(combined_slam_cfg(), 60, 128)``
      through ``run_fleet``), timed with CUDA events; K1 and K2 must each have
      launched once per tick;
   6. one single-mission ``step`` through K3;
+ 5b. the L=256 full replay (``slam_fleet_timelines(cfg256, 60, 32)``, T=601):
+     K1, K2 (phase 1) and K12 once per tick; then the one-kernel K2
+     schedule and the streamed one over the same first ticks;
+ 5c. the L=256 marginal replay on the same timeline: K1 and K4 once per tick;
   7. each PF kernel against its plain version on the card at N = 2^20, on
      the 60 s PF mission's bank and tick 0-11 parameters: the generator's
      uniforms bitwise; K5 ``predict_call_multi`` (nticks < K, rows past
@@ -27,7 +46,7 @@ Phases (any failure exits nonzero; nothing is caught):
      K7 ``expand_gather_call`` on healthy, degenerate and zero-run weights
      (ancestors and bank exact; with the jitter within tolerance) and K8
      ``jitter_moments_call`` (and K7 with the jitter == K8 after K7,
-     bitwise); each timed beside its plain version with CUDA events;
+     bitwise);
   8. the PF slice against its plain version: ``run_fast_segmented`` and
      ``run_fast`` at N = 2^20 over a 10 s mission with every noise std zero
      but the initial spread, on the card (kernels) and on the CPU (plain
@@ -39,14 +58,24 @@ Phases (any failure exits nonzero; nothing is caught):
      path (``segmented=False``), K6 once per tick;
  10. the combined mission ``run_combined`` on ``combined_workload(cfg, 60)``,
      timed; K1/K2 once per event tick, K5/K7 as in phase 9.
-The kernel launch counts are reset just before each main path (phases 5,
-9, 9b and 10) and read just after it (phase 5's after phase 6). K8 has no
-caller on the single-device path (its TPU callers are the particle-sharded
-update and the TPU's exact-fallback branch), so its count is 0. The
-second-to-last line is a JSON object with each kernel's launches, error and
-times; the last line is the device JSON.
+Every kernel's ``ms`` is its device time from ``torch.profiler`` (the
+CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); the
+back-to-back wall time per wrapper call is printed beside it, and
+``plain_ms`` is the plain version's back-to-back time on the card. The
+kernel launch counts are reset just before each main path (phases 5, 5b,
+5c, 9, 9b and 10) and read just after it (phase 5's after phase 6). K8 has
+no caller on the single-device path (its TPU callers are the
+particle-sharded update and the TPU's exact-fallback branch) and K11 none
+on any path (the reference calls it from tests only; its JV core runs
+inside K1), so their counts are 0. ``bound_ms`` is the larger of the bytes
+each kernel must move (inputs read once, outputs written once) over
+3.35 TB/s and its float operations over 67 TFLOP/s (H100 SXM data sheet),
+computed from this run's inputs. The second-to-last line is a JSON object
+with each kernel's launches, error, times and bound; the last line is the
+device JSON.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -62,6 +91,11 @@ KERNEL_RTOL = 1e-4  # float outputs: max |kernel - plain| <= 1e-4 * max(1, max|p
 # the bank mean by far less than a millimetre
 PF_MEAN_TOL = 1e-3
 PF_N = 1 << 20
+L256_B = 32        # the reference's L=256 fleet (bench.py sec_slam256)
+T_WARM = 50        # ticks replayed before a kernel phase takes the fleet's state
+N_ONE_KERNEL = 20  # ticks of the L=256 replay timed on the one-kernel K2 schedule
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
 
 def card_line() -> str:
@@ -71,8 +105,10 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n):
-    """Mean device time of fn() over n launches (after one warm-up)."""
+def wall_ms(fn, n):
+    """Back-to-back time per call of fn() over n calls (after one warm-up),
+    CUDA events around the loop: for a short kernel this is the host's
+    launch rate, not the kernel."""
     import torch
 
     fn()
@@ -84,6 +120,73 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def device_ms(fn, n, kernel):
+    """Mean device time (ms) of the CUDA kernel whose name contains
+    ``kernel`` over n calls of fn(), from torch.profiler's CUPTI trace
+    (after one warm-up), averaged over the launches the trace recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for e in prof.key_averages():
+        if kernel in e.key and e.self_device_time_total > 0:
+            total_us += e.self_device_time_total
+            count += e.count
+    if not 1 <= count <= n:   # the trace may drop a record; it never invents one
+        raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {n}")
+    return total_us / count / 1e3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, flops):
+    """(least time in ms, what bounds it) for moving n_bytes and doing
+    flops float operations on the card."""
+    tb, tf = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def k1_flops(B, L, M, dim, predict):
+    """Float operations of the DA stage from the kernel's formulas: per slot
+    the point (and pixel) model with its Jacobian, S = HΣ9Hᵀ + Q and its
+    inverse, the gated costs; per detection the candidate's; the selection.
+    The JV's data-dependent steps are not counted."""
+    inn = 2 * dim * 81 + 2 * dim * dim * 9 + 30
+    model = 72 + (60 if dim == 2 else 0)
+    per_slot = model + inn + M * (2 * dim * dim + 2 * dim) + (216 if predict else 0)
+    per_cand = 18 + model + inn
+    return B * (L * per_slot + M * per_cand + M * dim * 9 * dim * 2 + (864 if predict else 0))
+
+
+def k2_flops(B, D, M, dim, predict):
+    """The sequential update in factor form: the nine rows of each update
+    with the earlier factors' corrections, K_jᵀ and V_j, μ, and the
+    downdate (each UᵀV entry once; the transpose gives the other half)."""
+    K = M * dim
+    upd = D * (9 * dim * M * (M - 1) + 36 * dim * M)
+    return B * (upd + 2 * K * D * D + 2 * K * D + (72 * D if predict else 0))
+
+
+def k4_flops(B, D, M, dim, predict):
+    """The marginal update: the pose-row predict, then per update Kᵀ and V
+    (2·dim·81 FMAs), Σ9' (81·dim) and νᵀKᵀ."""
+    return B * ((72 * D if predict else 0) + M * (4 * dim * 81 + 162 * dim + 18 * dim))
+
+
+PF_TICK_FLOPS = 50  # float ops of one predict tick of one particle (Box-Muller,
+                    # the motion integration, the moment sums); the generator's
+                    # integer ops are not counted
+PF_JITTER_FLOPS = 40  # the resample jitter and moment sums per particle
 
 
 def max_err(got, want, mask=None):
@@ -177,10 +280,14 @@ def pf_kernels_phase(dev, tl_pf):
         if not bool((sums[9:] == 0).all()):
             raise AssertionError("K5: sums rows past nticks are not zero")
     nt = 10   # the main path's segment: a GPS fix every 10 ticks
-    res["K5"] = dict(err=max(errs), ms=cuda_ms(lambda: PK.predict_call_multi(
-        parts, par16, seeds, nxy, nyaw, nticks=nt), 50), plain_ms=cuda_ms(
-        lambda: PK.predict_call_multi_reference(parts, par16, seeds, nxy, nyaw, nticks=nt), 5),
-        nticks=nt)
+
+    def k5():
+        return PK.predict_call_multi(parts, par16, seeds, nxy, nyaw, nticks=nt)
+
+    res["K5"] = dict(err=max(errs), ms=device_ms(k5, 30, "predict_kernel"), wall_ms=wall_ms(k5, 50),
+                     plain_ms=wall_ms(lambda: PK.predict_call_multi_reference(
+                         parts, par16, seeds, nxy, nyaw, nticks=nt), 5), nticks=nt,
+                     bound=bound(nbytes(parts, par16, seeds, *k5()), n * nt * PF_TICK_FLOPS))
 
     # K6 == K5 at K = 1, bitwise; against its plain version
     o6, s6 = PK.predict_call(parts, par16[0], seeds[0], nxy, nyaw)
@@ -190,9 +297,14 @@ def pf_kernels_phase(dev, tl_pf):
         raise AssertionError("K6 differs from K5 at K = 1")
     r6, rs6 = PK.predict_call_reference(parts, par16[0], seeds[0], nxy, nyaw)
     e6 = max(check(bank_err(o6, r6), "K6 bank"), check(max_err(s6, rs6), "K6 sums"))
-    res["K6"] = dict(err=e6, ms=cuda_ms(lambda: PK.predict_call(
-        parts, par16[0], seeds[0], nxy, nyaw), 50), plain_ms=cuda_ms(
-        lambda: PK.predict_call_reference(parts, par16[0], seeds[0], nxy, nyaw), 10))
+
+    def k6():
+        return PK.predict_call(parts, par16[0], seeds[0], nxy, nyaw)
+
+    res["K6"] = dict(err=e6, ms=device_ms(k6, 30, "predict_kernel"), wall_ms=wall_ms(k6, 50),
+                     plain_ms=wall_ms(lambda: PK.predict_call_reference(
+                         parts, par16[0], seeds[0], nxy, nyaw), 10),
+                     bound=bound(nbytes(parts, par16[0], seeds[0], *k6()), n * PF_TICK_FLOPS))
 
     # K7 / K8 on the bank after the predict, for healthy, degenerate and
     # zero-run weights
@@ -229,14 +341,25 @@ def pf_kernels_phase(dev, tl_pf):
                  check(max_err(s8, rs8), f"K8 sums ({name})"))
         if name == "healthy":
             m_h, g_h = m_cum, got
-    res["K7"] = dict(err=e7, ms=cuda_ms(lambda: PK.expand_gather_call(m_h, bank, jsd, seed), 50),
-                     plain_ms=cuda_ms(lambda: PK.expand_gather_call_reference(
-                         m_h, bank, jsd, seed), 10))
-    res["K8"] = dict(err=e8, ms=cuda_ms(lambda: PK.jitter_moments_call(g_h, jsd, seed), 50),
-                     plain_ms=cuda_ms(lambda: PK.jitter_moments_call_reference(
-                         g_h, jsd, seed), 10))
+
+    def k7():
+        return PK.expand_gather_call(m_h, bank, jsd, seed)
+
+    def k8():
+        return PK.jitter_moments_call(g_h, jsd, seed)
+
+    res["K7"] = dict(err=e7, ms=device_ms(k7, 30, "resample_kernel"), wall_ms=wall_ms(k7, 50),
+                     plain_ms=wall_ms(lambda: PK.expand_gather_call_reference(
+                         m_h, bank, jsd, seed), 10),
+                     bound=bound(nbytes(m_h, bank, jsd, *k7()), n * PF_JITTER_FLOPS))
+    res["K8"] = dict(err=e8, ms=device_ms(k8, 30, "resample_kernel"), wall_ms=wall_ms(k8, 50),
+                     plain_ms=wall_ms(lambda: PK.jitter_moments_call_reference(
+                         g_h, jsd, seed), 10),
+                     bound=bound(nbytes(g_h, jsd, *k8()), n * PF_JITTER_FLOPS))
     for k, v in res.items():
-        print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms"
+        print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device "
+              f"({v['wall_ms']:.4f} ms per call back to back), plain {v['plain_ms']:.4f} ms, "
+              f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]})"
               + (f" (nticks {v['nticks']})" if "nticks" in v else ""), flush=True)
     print("generator: kernel uniforms bitwise equal to torch; K6 == K5(K=1) and "
           "K7(jitter) == K8(K7) bitwise; K7 ancestors exact on healthy, degenerate "
@@ -390,6 +513,293 @@ def pf_main_paths(dev, cfg, params, counters):
     return pk, pf_launch, pt_launch
 
 
+def marginal_err(got, want, what):
+    """K4 outputs: pose rows and the consumed band entries within tolerance,
+    μ too with the attitudes compared modulo 2π."""
+    import math
+
+    import torch
+
+    errs = [check(max_err(got[0][:, 0:6], want[0][:, 0:6]), f"{what} P")]
+    d = (got[1].double() - want[1].double())
+    d[:, 3:6] = torch.remainder(d[:, 3:6] + math.pi, 2 * math.pi) - math.pi
+    err, tol = float(d.abs().max()), KERNEL_RTOL * max(1.0, float(want[1].abs().max()))
+    errs.append(check((err, tol), f"{what} mu"))
+    errs.append(check(max_err(band_entries(got[2]), band_entries(want[2])), f"{what} band"))
+    if not bool(torch.isfinite(got[1]).all()):
+        raise AssertionError(f"{what}: non-finite mu")
+    return max(errs)
+
+
+def fls_detections(S, st_mu, active, params_f, M, dev):
+    """FLS pixel detections of each mission's first M-1 mapped landmarks
+    (with pixel noise) plus one far candidate, through a tilted, offset
+    sonar mount; masked where the slot is not active."""
+    import torch
+
+    B = st_mu.shape[0]
+    L = active.shape[1]
+    gen = torch.Generator().manual_seed(7)
+    lm = st_mu[:, 6:].reshape(B, L, 3)[:, :M - 1]
+    zf = torch.func.vmap(torch.func.vmap(
+        lambda p, l: S.h_fls(p, l, params_f), in_dims=(None, 0)))(st_mu[:, 0:6], lm)
+    zf = zf + torch.randn(zf.shape, generator=gen).to(dev) * 0.5
+    far = st_mu[:, 0:3] + torch.tensor([10.0, 2.0, -0.5], device=dev)
+    zfar = torch.func.vmap(lambda p, l: S.h_fls(p, l, params_f))(st_mu[:, 0:6], far)
+    z = torch.zeros(B, M, 3, device=dev)
+    z[:, :M - 1, 0:2] = zf
+    z[:, M - 1, 0:2] = zfar
+    zm = torch.cat([active[:, :M - 1], torch.ones(B, 1, dtype=torch.bool, device=dev)], 1)
+    return z, zm
+
+
+def fls_params(S, cfg, dev):
+    import torch
+
+    from smarc_navigation_tpu_torch.utils.geometry import Transform, rotmat_from_rpy
+
+    tf = Transform(rot=rotmat_from_rpy(torch.tensor([0.0, 0.08, 0.0], device=dev)),
+                   trans=torch.tensor([0.4, 0.0, -0.2], device=dev))
+    return S.make_params(cfg, tf_base_fls=tf, device=dev)
+
+
+def slam256_kernels_phase(dev, cfg, params, tl):
+    """Phase 3b: K1 pose-rows form, K4, K11, K2 at D=774 and K12 against
+    their plain versions at L=256, B=32; K2 streamed == one-kernel."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
+    from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+
+    t0 = time.perf_counter()
+    B, L, M = tl.ticks.shape[0], cfg.max_landmarks, cfg.max_obs
+    D = 6 + 3 * L
+    warm = tl.map(lambda x: x[:, :T_WARM])
+    odom = tl.channels["odom"]
+    pose_t = S._odom_pose(odom.value[:, T_WARM]).contiguous()
+    valid_t = odom.valid[:, T_WARM].contiguous()
+    ev = tl.events["mbes"]
+    z = ev.value[:, T_WARM].contiguous()
+    zm = (ev.mask[:, T_WARM] & valid_t[:, None]).contiguous()
+    new_cov = torch.tensor(S.MBES.new_lm_cov, device=dev)
+    res = {}
+
+    # --- the marginal carry: K1 pose-rows form, K4 -----------------------------
+    fm, _ = S.run_fleet(warm, params, cfg, update_mode="marginal")
+    rows = torch.zeros(B, 8, D, device=dev)
+    rows[:, 0:6] = fm.Sigma[:, 0:6]
+    ms = S.MarginalFleetState(mu=fm.mu, rows=rows, band=S.initial_band(fm.Sigma, L).contiguous(),
+                              active=fm.active, n_active=fm.n_active,
+                              mu_auv_odom=fm.mu_auv_odom)
+    ms_p, a8 = S._fleet_predict_marginal(ms, pose_t, valid_t, params, predict_rows=False)
+    base = (ms_p.mu[:, 0:6].contiguous(), ms_p.n_active, ms_p.active,
+            ms_p.mu[:, 6:].reshape(B, L, 3).contiguous(), None)
+    da_args = base + (z, zm, torch.diagonal(params.Q_mbes), params.lambda_mbes,
+                      cfg.outlier_cost, cfg.mhl_dist_mbes, new_cov)
+    da_kw = dict(sensor="mbes", A=a8[:, 0:6, 0:6].contiguous(),
+                 r_full=a8[:, 0:6, 8:14].contiguous(), band=ms_p.band, pose_rows=ms_p.rows)
+    got = K1.da_lanes(*da_args, **da_kw)
+    torch.cuda.synchronize()
+    want = K1.da_lanes_reference(*da_args, **da_kw)
+    e1 = compare_da(got, want, zm, "K1 pose rows MBES")
+    params_f = fls_params(S, cfg, dev)
+    zf, zfm = fls_detections(S, ms_p.mu, ms_p.active, params_f, M, dev)
+    zfm = zfm & valid_t[:, None]
+    fls_args = base + (zf, zfm, torch.diagonal(params_f.Q_fls), params_f.lambda_fls,
+                       cfg.outlier_cost, cfg.mhl_dist_fls, torch.tensor(S.FLS.new_lm_cov, device=dev))
+    fls_kw = dict(sensor="fls", r_sb=params_f.r_fls_base, t_sb=params_f.t_fls_base,
+                  band=ms_p.band, pose_rows=ms_p.rows)
+    gotf = K1.da_lanes(*fls_args, **fls_kw)
+    torch.cuda.synchronize()
+    e1f = compare_da(gotf, K1.da_lanes_reference(*fls_args, **fls_kw), zfm, "K1 pose rows FLS")
+    res["K1_pose_rows"] = dict(err=max(e1, e1f), ms=device_ms(
+        lambda: K1.da_lanes(*da_args, **da_kw), 30, "da_kernel"))
+    print(f"K1 da_lanes pose-rows form L={L} B={B}: MBES detections {int(zm.sum())}, "
+          f"do {int(got[5].sum())}, add {int(got[6].sum())}; FLS detections {int(zfm.sum())}, "
+          f"do {int(gotf[5].sum())}; max err {res['K1_pose_rows']['err']:.3e}; kernel "
+          f"{res['K1_pose_rows']['ms']:.4f} ms device", flush=True)
+
+    errs4 = []
+    k4_main = None
+    for sel, nc, what in ((got, new_cov, "MBES"), (gotf, fls_args[11], "FLS")):
+        ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = sel
+        for a8x in (a8, None):
+            args4 = (ms_p.rows, ms_p.mu, H_sel, SinvH, nu_sel, (6 + 3 * slot).contiguous(), do,
+                     add, nc, cand, ms_p.band, a8x)
+            g4 = K2.sequential_update_marginal_fleet(*args4)
+            torch.cuda.synchronize()
+            w4 = K2.sequential_update_marginal_fleet_reference(*args4)
+            errs4.append(marginal_err(g4, w4, f"K4 {what} a8={a8x is not None}"))
+            if k4_main is None:
+                k4_main = (args4, g4)
+    args4, g4 = k4_main
+
+    def k4():
+        return K2.sequential_update_marginal_fleet(*args4)
+
+    res["K4"] = dict(err=max(errs4), ms=device_ms(k4, 30, "marginal_kernel"),
+                     wall_ms=wall_ms(k4, 50), plain_ms=wall_ms(
+                         lambda: K2.sequential_update_marginal_fleet_reference(*args4), 5),
+                     bound=bound(nbytes(*args4[:-1], args4[-1], *g4),
+                                 k4_flops(B, D, M, 3, True)))
+
+    # --- K11 on the DA stage's own cost tables ----------------------------------
+    cost = K1.da_tables_reference(*da_args, **da_kw)[0].contiguous()
+    ctr11 = K1.hungarian_lanes(cost)
+    torch.cuda.synchronize()
+    if not (torch.equal(ctr11, K1.hungarian_lanes_reference(cost)) and torch.equal(ctr11, want[0])):
+        raise AssertionError("K11: col_to_row differs from the plain version")
+    R, C = cost.shape[1], cost.shape[2]
+
+    def k11():
+        return K1.hungarian_lanes(cost)
+
+    res["K11"] = dict(err=0.0, ms=device_ms(k11, 30, "jv_kernel"), wall_ms=wall_ms(k11, 50),
+                      plain_ms=wall_ms(lambda: K1.hungarian_lanes_reference(cost), 3),
+                      bound=bound(nbytes(cost, ctr11), 4 * B * C * R), shape=(B, R, C))
+
+    # --- the full carry: K2 at D=774, phase 1 + K12 ---------------------------
+    st, _ = S.run_fleet(warm, params, cfg)
+    band = S.initial_band(st.Sigma, L).contiguous()
+    st_p, a8f = S._fleet_predict(st, pose_t, valid_t, params)
+    da_full = (st_p.mu[:, 0:6].contiguous(), st_p.n_active, st_p.active,
+               st_p.mu[:, 6:].reshape(B, L, 3).contiguous(), st_p.Sigma, z, zm,
+               torch.diagonal(params.Q_mbes), params.lambda_mbes, cfg.outlier_cost,
+               cfg.mhl_dist_mbes, new_cov)
+    ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = K1.da_lanes(
+        *da_full, sensor="mbes", A=a8f[:, 0:6, 0:6].contiguous(),
+        r_full=a8f[:, 0:6, 8:14].contiguous(), band=band)
+    k2_args = (st_p.Sigma, st_p.mu, H_sel, SinvH, nu_sel, (6 + 3 * slot).contiguous(), do, add,
+               new_cov, cand, a8f, band)
+    one = K2.sequential_update_fleet(*k2_args, streamed=False)
+    strm = K2.sequential_update_fleet(*k2_args, streamed=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(one[1], strm[1]) and torch.equal(one[2], strm[2])):
+        raise AssertionError("K2 streamed: mu or band differ from the one-kernel schedule")
+    for x, name in ((one[0], "one-kernel"), (strm[0], "streamed")):
+        if not torch.equal(x, x.transpose(1, 2)):
+            raise AssertionError(f"K2 {name} at D={D}: Sigma not exactly symmetric")
+    e_sched = check(max_err(strm[0], one[0]), "K2 streamed vs one-kernel Sigma")
+    bitwise = torch.equal(strm[0], one[0])
+    want2 = K2.sequential_update_fleet_reference(*k2_args, streamed=False)
+    e2 = max(check(max_err(one[0], want2[0]), "K2 D=774 Sigma"),
+             check(max_err(one[1], want2[1]), "K2 D=774 mu"),
+             check(max_err(band_entries(one[2]), band_entries(want2[2])), "K2 D=774 band"))
+    mu1, band1, P1, U, V, act = K2.phase1(*k2_args)
+    s12 = K2.symmetric_downdate(st_p.Sigma, U, V, P1, act)
+    torch.cuda.synchronize()
+    w12 = K2.symmetric_downdate_reference(st_p.Sigma, U, V, P1, act)
+    e12 = check(max_err(s12, w12), "K12")
+    if not torch.equal(s12, s12.transpose(1, 2)):
+        raise AssertionError("K12: Sigma not exactly symmetric")
+
+    def k12():
+        return K2.symmetric_downdate(st_p.Sigma, U, V, P1, act)
+
+    UV, VU = torch.cat([U, V], 1).transpose(1, 2).contiguous(), torch.cat([V, U], 1).contiguous()
+    K = U.shape[1]
+    res["K12"] = dict(err=max(e12, e_sched), ms=device_ms(k12, 30, "downdate_kernel"),
+                      wall_ms=wall_ms(k12, 50),
+                      plain_ms=wall_ms(lambda: K2.symmetric_downdate_reference(
+                          st_p.Sigma, U, V, P1, act), 10),
+                      library_ms=wall_ms(lambda: torch.baddbmm(st_p.Sigma, UV, VU, alpha=-0.5), 30),
+                      bound=bound(nbytes(st_p.Sigma, U, V, P1, act, s12), 2 * K * D * D * B))
+    res["K2_774"] = dict(err=e2, ms=device_ms(lambda: K2.sequential_update_fleet(
+        *k2_args, streamed=False), 5, "update_kernel"),
+        phase1_ms=device_ms(lambda: K2.phase1(*k2_args), 30, "update_kernel"),
+        bound=bound(nbytes(*k2_args, *one), k2_flops(B, D, M, 3, True)))
+    for k in ("K4", "K11", "K12"):
+        v = res[k]
+        print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms "
+              f"per call back to back), plain {v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms "
+              f"({v['bound'][1]})" + (f", torch.baddbmm {v['library_ms']:.4f} ms"
+                                      if "library_ms" in v else ""), flush=True)
+    v = res["K2_774"]
+    print(f"K2 at D={D} B={B}: one-kernel schedule {v['ms']:.4f} ms device (max err vs plain "
+          f"{v['err']:.3e}, bound {v['bound'][0]:.4f} ms, {v['bound'][1]}); streamed schedule "
+          f"phase 1 {v['phase1_ms']:.4f} ms + K12 {res['K12']['ms']:.4f} ms; streamed == "
+          f"one-kernel: mu and band bitwise, Sigma {'bitwise' if bitwise else f'max err {e_sched:.3e}'}"
+          f", both exactly symmetric ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return res
+
+
+def slam256_slice_phase(dev, cfg, params, tl8_np):
+    """Phase 4b: the L=256 marginal and full fleets, kernels vs plain."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+
+    for mode in ("marginal", "full"):
+        t0 = time.perf_counter()
+        fin_k, out_k = S.run_fleet(tl8_np.to(dev), params, cfg, update_mode=mode)
+        fin_p, out_p = S.run_fleet(tl8_np.to("cpu"), S.make_params(cfg, device="cpu"), cfg,
+                                   update_mode=mode)
+        for key in ("matched_mbes", "n_active"):
+            if not torch.equal(out_k[key].cpu(), out_p[key]):
+                raise AssertionError(f"L=256 {mode} slice: {key} differs between kernels and plain")
+        pose_err = float((out_k["mu"].cpu() - out_p["mu"]).abs().max())
+        if not pose_err <= POSE_TOL:
+            raise AssertionError(f"L=256 {mode} slice: pose differs by {pose_err:.3e} > {POSE_TOL}")
+        print(f"L=256 {mode} slice B={out_k['mu'].shape[1]} T={out_k['mu'].shape[0]}: "
+              f"matched_mbes and n_active equal ({int((out_k['matched_mbes'] >= 0).sum())} matches, "
+              f"n_active {out_k['n_active'][-1].tolist()}), max pose err {pose_err:.3e} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def slam256_replays(dev, cfg, params, tl, counters):
+    """Phases 5b-5c: the L=256 replays in both semantics; returns their
+    launch counts."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+
+    B, T = tl.ticks.shape
+    S.run_fleet(tl.map(lambda x: x[:, :10]), params, cfg)                        # warm-up
+    S.run_fleet(tl.map(lambda x: x[:, :10]), params, cfg, update_mode="marginal")
+    launches = {}
+    for mode in ("full", "marginal"):
+        for f in counters:
+            f.launches = 0
+        (final, out), ms, wall = timed(lambda: S.run_fleet(tl, params, cfg, update_mode=mode))
+        n = {f.__name__: f.launches for f in counters}
+        want = (dict(da_lanes=T, sequential_update_fleet=T, symmetric_downdate=T) if mode == "full"
+                else dict(da_lanes=T, sequential_update_marginal_fleet=T))
+        if any(n[k] != v for k, v in want.items()):
+            raise AssertionError(f"L=256 {mode} replay: launches {n}, expected {want}")
+        for name, x in (("mu", final.mu), ("Sigma", final.Sigma), ("out mu", out["mu"])):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"L=256 {mode} replay: non-finite {name}")
+        n_act = final.n_active.cpu()
+        if not int((n_act > 0).sum()) == B:
+            raise AssertionError(f"L=256 {mode} replay: a mission mapped nothing: {n_act}")
+        launches[mode] = n
+        print(f"L=256 {mode} replay B={B} T={T}: {ms:.1f} ms on the card ({wall:.2f} s host), "
+              f"{ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; n_active min "
+              f"{int(n_act.min())} mean {float(n_act.float().mean()):.1f} max {int(n_act.max())}; "
+              f"launches {n}", flush=True)
+
+    # the two K2 schedules of the full replay over the same first ticks
+    head = tl.map(lambda x: x[:, :N_ONE_KERNEL])
+    (_, out_s), ms_s, _ = timed(lambda: S.run_fleet(head, params, cfg))
+    saved = K2.STREAMED_MIN_D
+    K2.STREAMED_MIN_D = 1 << 30
+    try:
+        (_, out_o), ms_o, _ = timed(lambda: S.run_fleet(head, params, cfg))
+    finally:
+        K2.STREAMED_MIN_D = saved
+    for key in ("matched_mbes", "n_active"):
+        if not torch.equal(out_s[key], out_o[key]):
+            raise AssertionError(f"L=256 schedules: {key} differs between streamed and one-kernel")
+    d = float((out_s["mu"] - out_o["mu"]).abs().max())
+    print(f"L=256 full replay, first {N_ONE_KERNEL} ticks: streamed schedule "
+          f"{ms_s * 1e3 / N_ONE_KERNEL:.1f} us/tick, one-kernel schedule "
+          f"{ms_o * 1e3 / N_ONE_KERNEL:.1f} us/tick; associations equal, max pose difference "
+          f"{d:.3e}", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -402,12 +812,12 @@ def main():
     dev = torch.device("cuda", 0)
 
     from smarc_navigation_tpu_torch import _build
+    from smarc_navigation_tpu_torch.configs import EKFSlamConfig
     from smarc_navigation_tpu_torch.io.workloads import (
         combined_slam_cfg, slam_fleet_timelines)
     from smarc_navigation_tpu_torch.models import ekf_slam as S
     from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
     from smarc_navigation_tpu_torch.ops import slam_kernels as K2
-    from smarc_navigation_tpu_torch.utils.geometry import Transform, rotmat_from_rpy
 
     # --- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -423,25 +833,30 @@ def main():
     cfg = combined_slam_cfg()
     L, M = cfg.max_landmarks, cfg.max_obs
     params = S.make_params(cfg, device=dev)
+    cfg256 = dataclasses.replace(EKFSlamConfig(), max_landmarks=256, max_obs=8)
+    params256 = S.make_params(cfg256, device=dev)
     with warnings.catch_warnings():   # detection bursts beyond M are dropped,
         warnings.simplefilter("ignore")  # as in the reference workload
         tl_np = slam_fleet_timelines(cfg, 60.0, 128)
         tl8_np = slam_fleet_timelines(cfg, 9.9, 8)
+        tl256_np = slam_fleet_timelines(cfg256, 60.0, L256_B)
+        tl256_8_np = slam_fleet_timelines(cfg256, 9.9, 8)
     tl = tl_np.to(dev)
+    tl256 = tl256_np.to(dev)
     B, T = tl.ticks.shape
-    print(f"headline fleet: B={B} T={T} L={L} M={M} D={6 + 3 * L}", flush=True)
+    print(f"headline fleet: B={B} T={T} L={L} M={M} D={6 + 3 * L}; reference-tuned fleet: "
+          f"B={L256_B} T={tl256.ticks.shape[1]} L=256 M=8 D=774", flush=True)
 
     # --- 3. kernels against their plain versions ------------------------------
-    t_warm = 50
-    st, _ = S.run_fleet(tl.map(lambda x: x[:, :t_warm]), params, cfg)
+    st, _ = S.run_fleet(tl.map(lambda x: x[:, :T_WARM]), params, cfg)
     band = S.initial_band(st.Sigma, L).contiguous()
     odom = tl.channels["odom"]
-    pose_t = S._odom_pose(odom.value[:, t_warm]).contiguous()
-    valid_t = odom.valid[:, t_warm].contiguous()
+    pose_t = S._odom_pose(odom.value[:, T_WARM]).contiguous()
+    valid_t = odom.valid[:, T_WARM].contiguous()
     st_p, a8 = S._fleet_predict(st, pose_t, valid_t, params)
     ev = tl.events["mbes"]
-    z = ev.value[:, t_warm].contiguous()
-    zm = (ev.mask[:, t_warm] & valid_t[:, None]).contiguous()
+    z = ev.value[:, T_WARM].contiguous()
+    zm = (ev.mask[:, T_WARM] & valid_t[:, None]).contiguous()
     new_cov = torch.tensor(S.MBES.new_lm_cov, device=dev)
     da_args = (st_p.mu[:, 0:6].contiguous(), st_p.n_active, st_p.active,
                st_p.mu[:, 6:].reshape(B, L, 3).contiguous(), st_p.Sigma, z, zm,
@@ -453,28 +868,24 @@ def main():
     torch.cuda.synchronize()
     want = K1.da_lanes_reference(*da_args, **da_kw)
     k1_err = compare_da(got, want, zm, "K1 MBES")
-    k1_ms = cuda_ms(lambda: K1.da_lanes(*da_args, **da_kw), 50)
-    k1_plain_ms = cuda_ms(lambda: K1.da_lanes_reference(*da_args, **da_kw), 3)
+
+    def k1():
+        return K1.da_lanes(*da_args, **da_kw)
+
+    k1_ms, k1_wall = device_ms(k1, 30, "da_kernel"), wall_ms(k1, 50)
+    k1_plain_ms = wall_ms(lambda: K1.da_lanes_reference(*da_args, **da_kw), 3)
+    # the stage reads Σ's six pose rows (Sll comes from the band)
+    k1_bound = bound(nbytes(*da_args[:4], st_p.Sigma[:, 0:6], z, zm, da_kw["A"], da_kw["r_full"],
+                            band, *got), k1_flops(B, L, M, 3, True))
     print(f"K1 da_lanes MBES: detections {int(zm.sum())}, do {int(got[5].sum())}, "
-          f"add {int(got[6].sum())}, max err {k1_err:.3e}; "
-          f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.2f} ms", flush=True)
+          f"add {int(got[6].sum())}, max err {k1_err:.3e}; kernel {k1_ms:.4f} ms device "
+          f"({k1_wall:.4f} ms per call back to back), plain {k1_plain_ms:.2f} ms, bound "
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})", flush=True)
 
     # FLS form: pixel detections of each mission's mapped landmarks through a
     # tilted, offset sonar mount, plus one far candidate; no predict, band on
-    tf = Transform(rot=rotmat_from_rpy(torch.tensor([0.0, 0.08, 0.0], device=dev)),
-                   trans=torch.tensor([0.4, 0.0, -0.2], device=dev))
-    params_f = S.make_params(cfg, tf_base_fls=tf, device=dev)
-    gen = torch.Generator().manual_seed(7)
-    lm = st_p.mu[:, 6:].reshape(B, L, 3)[:, :M - 1]
-    zf = torch.func.vmap(torch.func.vmap(
-        lambda p, l: S.h_fls(p, l, params_f), in_dims=(None, 0)))(st_p.mu[:, 0:6], lm)
-    zf = zf + torch.randn(zf.shape, generator=gen).to(dev) * 0.5
-    far = st_p.mu[:, 0:3] + torch.tensor([10.0, 2.0, -0.5], device=dev)
-    zfar = torch.func.vmap(lambda p, l: S.h_fls(p, l, params_f))(st_p.mu[:, 0:6], far)
-    zfls = torch.zeros(B, M, 3, device=dev)
-    zfls[:, :M - 1, 0:2] = zf
-    zfls[:, M - 1, 0:2] = zfar
-    zfm = torch.cat([st_p.active[:, :M - 1], torch.ones(B, 1, dtype=torch.bool, device=dev)], 1)
+    params_f = fls_params(S, cfg, dev)
+    zfls, zfm = fls_detections(S, st_p.mu, st_p.active, params_f, M, dev)
     zfm = zfm & valid_t[:, None]
     fls_args = (st_p.mu[:, 0:6].contiguous(), st_p.n_active, st_p.active,
                 st_p.mu[:, 6:].reshape(B, L, 3).contiguous(), st_p.Sigma, zfls, zfm,
@@ -486,9 +897,9 @@ def main():
     torch.cuda.synchronize()
     wantf = K1.da_lanes_reference(*fls_args, **fls_kw)
     k1f_err = compare_da(gotf, wantf, zfm, "K1 FLS")
-    k1f_ms = cuda_ms(lambda: K1.da_lanes(*fls_args, **fls_kw), 50)
+    k1f_ms = device_ms(lambda: K1.da_lanes(*fls_args, **fls_kw), 30, "da_kernel")
     print(f"K1 da_lanes FLS: detections {int(zfm.sum())}, do {int(gotf[5].sum())}, "
-          f"add {int(gotf[6].sum())}, max err {k1f_err:.3e}; kernel {k1f_ms:.4f} ms",
+          f"add {int(gotf[6].sum())}, max err {k1f_err:.3e}; kernel {k1f_ms:.4f} ms device",
           flush=True)
 
     # K2 on K1's selection, with the predict, the band and the candidates
@@ -507,11 +918,17 @@ def main():
     if not bool((got2[0] == got2[0].transpose(1, 2)).all()):
         raise AssertionError("K2: Sigma not exactly symmetric")
     k2_err = max(e for e, _ in errs)
-    k2_ms = cuda_ms(lambda: K2.sequential_update_fleet(*k2_args), 50)
-    k2_plain_ms = cuda_ms(lambda: K2.sequential_update_fleet_reference(*k2_args), 10)
+
+    def k2():
+        return K2.sequential_update_fleet(*k2_args)
+
+    k2_ms, k2_wall = device_ms(k2, 30, "update_kernel"), wall_ms(k2, 50)
+    k2_plain_ms = wall_ms(lambda: K2.sequential_update_fleet_reference(*k2_args), 10)
+    k2_bound = bound(nbytes(*k2_args, *got2), k2_flops(B, 6 + 3 * L, M, 3, True))
     print(f"K2 sequential_update_fleet: max err Sigma {errs[0][0]:.3e} mu {errs[1][0]:.3e} "
-          f"band {errs[2][0]:.3e}; kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms",
-          flush=True)
+          f"band {errs[2][0]:.3e}; kernel {k2_ms:.4f} ms device ({k2_wall:.4f} ms per call "
+          f"back to back), plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms "
+          f"({k2_bound[1]})", flush=True)
 
     # K3 on the mission with the most updates (Σ predicted by the plain path)
     b = int(do.sum(1).argmax())
@@ -526,10 +943,20 @@ def main():
         if err > tol:
             raise AssertionError(f"K3 {name}: max err {err:.3e} > {tol:.3e}")
     k3_err = max(e for e, _ in errs3)
-    k3_ms = cuda_ms(lambda: K2.sequential_update(*k3_args), 50)
-    k3_plain_ms = cuda_ms(lambda: K2.sequential_update_reference(*k3_args), 10)
+
+    def k3():
+        return K2.sequential_update(*k3_args)
+
+    k3_ms, k3_wall = device_ms(k3, 30, "update_kernel"), wall_ms(k3, 50)
+    k3_plain_ms = wall_ms(lambda: K2.sequential_update_reference(*k3_args), 10)
+    k3_bound = bound(nbytes(*k3_args, *got3), k2_flops(1, 6 + 3 * L, M, 3, False))
     print(f"K3 sequential_update (mission {b}, {int(do[b].sum())} updates): max err "
-          f"{k3_err:.3e}; kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.3f} ms", flush=True)
+          f"{k3_err:.3e}; kernel {k3_ms:.4f} ms device ({k3_wall:.4f} ms per call back to "
+          f"back), plain {k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]})",
+          flush=True)
+
+    # --- 3b. the slice-3 kernels at L=256 ---------------------------------------
+    k256 = slam256_kernels_phase(dev, cfg256, params256, tl256)
 
     # --- 4. the slice against its plain version ------------------------------
     t0 = time.perf_counter()
@@ -545,21 +972,16 @@ def main():
           f"({int((out_k['matched_mbes'] >= 0).sum())} matches, n_active "
           f"{out_k['n_active'][-1].tolist()}), max pose err {pose_err:.3e} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    slam256_slice_phase(dev, cfg256, params256, tl256_8_np)
 
     # --- 5. the headline replay (main path) ------------------------------------
     S.run_fleet(tl.map(lambda x: x[:, :10]), params, cfg)      # warm-up
     torch.cuda.synchronize()
-    counters = [K1.da_lanes, K2.sequential_update_fleet, K2.sequential_update]
+    counters = [K1.da_lanes, K2.sequential_update_fleet, K2.sequential_update,
+                K2.sequential_update_marginal_fleet, K2.symmetric_downdate, K1.hungarian_lanes]
     for f in counters:
         f.launches = 0
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    final, out = S.run_fleet(tl, params, cfg)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    ms = start.elapsed_time(end)
+    (final, out), ms, wall = timed(lambda: S.run_fleet(tl, params, cfg))
     if K1.da_lanes.launches != T or K2.sequential_update_fleet.launches != T:
         raise AssertionError(
             f"headline: {K1.da_lanes.launches} DA and "
@@ -589,50 +1011,49 @@ def main():
     err, tol = max_err(s_k.mu, s_p.mu)
     if err > tol:
         raise AssertionError(f"step: mu differs by {err:.3e} > {tol:.3e}")
-    launches = [f.launches for f in counters]
-    if launches[2] < 1:
+    launches = {f.__name__: f.launches for f in counters}
+    if launches["sequential_update"] < 1:
         raise AssertionError("step: K3 was not launched")
     print(f"step (mission 0, tick {k}): matched {o_k['matched_mbes'].tolist()}, "
-          f"mu err vs dense {err:.3e}; launches K1 {launches[0]} K2 {launches[1]} "
-          f"K3 {launches[2]}", flush=True)
+          f"mu err vs dense {err:.3e}; launches {launches}", flush=True)
+
+    # --- 5b-5c. the L=256 replays in both semantics -----------------------------
+    l256 = slam256_replays(dev, cfg256, params256, tl256, counters)
 
     # --- 7-10. the PF kernels, slice, headline and the combined mission ------
     pk, pf_launch, pt_launch = pf_main_paths(dev, cfg, params, counters)
 
+    def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None):
+        return dict(name=name, route="cuda", source=f"smarc_navigation_tpu_torch/csrc/{source}",
+                    replaces=f"smarc_navigation_tpu/ops/{replaces}", launches=n,
+                    max_abs_err=err, ms=ms_, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
+                    library_ms=library)
+
     kernels = [
-        dict(name="da_lanes", route="cuda",
-             source="smarc_navigation_tpu_torch/csrc/slam_da.cu",
-             replaces="smarc_navigation_tpu/ops/slam_da_kernels.py:581",
-             launches=launches[0], max_abs_err=max(k1_err, k1f_err),
-             ms=k1_ms, plain_ms=k1_plain_ms),
-        dict(name="sequential_update_fleet", route="cuda",
-             source="smarc_navigation_tpu_torch/csrc/slam_update.cu",
-             replaces="smarc_navigation_tpu/ops/slam_kernels.py:791",
-             launches=launches[1], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms),
-        dict(name="sequential_update", route="cuda",
-             source="smarc_navigation_tpu_torch/csrc/slam_update.cu",
-             replaces="smarc_navigation_tpu/ops/slam_kernels.py:213",
-             launches=launches[2], max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms),
-        dict(name="predict_call_multi", route="cuda",
-             source="smarc_navigation_tpu_torch/csrc/pf_predict.cu",
-             replaces="smarc_navigation_tpu/ops/pf_kernels.py:820",
-             launches=pf_launch["predict_call_multi"], max_abs_err=pk["K5"]["err"],
-             ms=pk["K5"]["ms"], plain_ms=pk["K5"]["plain_ms"]),
-        dict(name="predict_call", route="cuda",
-             source="smarc_navigation_tpu_torch/csrc/pf_predict.cu",
-             replaces="smarc_navigation_tpu/ops/pf_kernels.py:865",
-             launches=pt_launch["predict_call"], max_abs_err=pk["K6"]["err"],
-             ms=pk["K6"]["ms"], plain_ms=pk["K6"]["plain_ms"]),
-        dict(name="expand_gather_call", route="cuda",
-             source="smarc_navigation_tpu_torch/csrc/pf_resample.cu",
-             replaces="smarc_navigation_tpu/ops/pf_kernels.py:562",
-             launches=pf_launch["expand_gather_call"], max_abs_err=pk["K7"]["err"],
-             ms=pk["K7"]["ms"], plain_ms=pk["K7"]["plain_ms"]),
-        dict(name="jitter_moments_call", route="cuda",
-             source="smarc_navigation_tpu_torch/csrc/pf_resample.cu",
-             replaces="smarc_navigation_tpu/ops/pf_kernels.py:472",
-             launches=pf_launch["jitter_moments_call"], max_abs_err=pk["K8"]["err"],
-             ms=pk["K8"]["ms"], plain_ms=pk["K8"]["plain_ms"]),
+        entry("da_lanes", "slam_da.cu", "slam_da_kernels.py:581", launches["da_lanes"],
+              max(k1_err, k1f_err, k256["K1_pose_rows"]["err"]), k1_ms, k1_plain_ms, k1_bound),
+        entry("sequential_update_fleet", "slam_update.cu", "slam_kernels.py:791",
+              launches["sequential_update_fleet"], max(k2_err, k256["K2_774"]["err"]), k2_ms,
+              k2_plain_ms, k2_bound),
+        entry("sequential_update", "slam_update.cu", "slam_kernels.py:213",
+              launches["sequential_update"], k3_err, k3_ms, k3_plain_ms, k3_bound),
+        entry("sequential_update_marginal_fleet", "slam_marginal.cu", "slam_kernels.py:1124",
+              l256["marginal"]["sequential_update_marginal_fleet"], k256["K4"]["err"],
+              k256["K4"]["ms"], k256["K4"]["plain_ms"], k256["K4"]["bound"]),
+    ] + [
+        entry(name, src, rep, cnt[name], pk[k]["err"], pk[k]["ms"], pk[k]["plain_ms"], pk[k]["bound"])
+        for k, name, src, rep, cnt in (
+            ("K5", "predict_call_multi", "pf_predict.cu", "pf_kernels.py:820", pf_launch),
+            ("K6", "predict_call", "pf_predict.cu", "pf_kernels.py:865", pt_launch),
+            ("K7", "expand_gather_call", "pf_resample.cu", "pf_kernels.py:562", pf_launch),
+            ("K8", "jitter_moments_call", "pf_resample.cu", "pf_kernels.py:472", pf_launch))
+    ] + [
+        entry("hungarian_lanes", "slam_da.cu", "slam_da_kernels.py:616",
+              l256["full"]["hungarian_lanes"], k256["K11"]["err"], k256["K11"]["ms"],
+              k256["K11"]["plain_ms"], k256["K11"]["bound"]),
+        entry("symmetric_downdate", "slam_downdate.cu", "slam_kernels.py:807",
+              l256["full"]["symmetric_downdate"], k256["K12"]["err"], k256["K12"]["ms"],
+              k256["K12"]["plain_ms"], k256["K12"]["bound"], k256["K12"]["library_ms"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

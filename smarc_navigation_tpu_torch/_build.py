@@ -31,8 +31,9 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 # per-library extra flags: the DA kernel's gate/cost arithmetic and the PF
 # kernels' motion, jitter and generator arithmetic round every product (no
 # FMA contraction), like the plain PyTorch versions' elementwise ops
-EXTRA_FLAGS = {"slam_da": ["-fmad=false"], "slam_update": [],
-               "pf_predict": ["-fmad=false"], "pf_resample": ["-fmad=false"]}
+EXTRA_FLAGS = {"slam_da": ["-fmad=false"], "slam_update": [], "slam_downdate": [],
+               "slam_marginal": [], "pf_predict": ["-fmad=false"],
+               "pf_resample": ["-fmad=false"]}
 
 _libs: dict = {}
 

@@ -29,5 +29,10 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+def device_index(device: torch.device) -> int:
+    """The CUDA ordinal a kernel launch selects for a tensor's device."""
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

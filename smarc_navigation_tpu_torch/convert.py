@@ -8,11 +8,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.ekf_slam import SlamParams, SlamState
+from .models.ekf_slam import MarginalFleetState, SlamParams, SlamState
 from .models.particle_filter import PFParams, PFState
 from .ops.timeline import timeline_from_numpy
 
-__all__ = ["slam_params_from_numpy", "slam_state_from_numpy", "timeline_from_numpy",
+__all__ = ["slam_params_from_numpy", "slam_state_from_numpy",
+           "marginal_state_from_numpy", "timeline_from_numpy",
            "pf_params_from_numpy", "pf_state_from_numpy"]
 
 
@@ -32,6 +33,15 @@ def slam_state_from_numpy(d: dict, device) -> SlamState:
     kw["n_active"] = kw["n_active"].to(torch.int32)
     kw["active"] = kw["active"].to(torch.bool)
     return SlamState(**kw)
+
+
+def marginal_state_from_numpy(d: dict, device) -> MarginalFleetState:
+    """The marginal fleet's carry (pose rows + band) from a dict of numpy
+    arrays; n_active becomes int32 and active bool, as the port keeps them."""
+    kw = {k: _tensor(d[k], device) for k in MarginalFleetState._fields}
+    kw["n_active"] = kw["n_active"].to(torch.int32)
+    kw["active"] = kw["active"].to(torch.bool)
+    return MarginalFleetState(**kw)
 
 
 def pf_params_from_numpy(d: dict, device) -> PFParams:

@@ -1,9 +1,10 @@
-// K1: the whole EKF-SLAM data-association stage of one fleet tick.
+// K1: the whole EKF-SLAM data-association stage of one fleet tick, and K11:
+// the fleet's exact assignment on its own.
 //
-// Replaces the TPU kernel smarc_navigation_tpu/ops/slam_da_kernels.py::da_lanes
-// (pallas_call at :581, body _make_da_kernel, JV core _jv_lanes). Contract:
-// ekf_slam.da_stage + the selection of ekf_slam.da_commit's kernel branch,
-// i.e. this package's ops/slam_da_kernels.da_lanes_reference.
+// K1 replaces the TPU kernel smarc_navigation_tpu/ops/slam_da_kernels.py::
+// da_lanes (pallas_call at :581, body _make_da_kernel, JV core _jv_lanes).
+// Contract: ekf_slam.da_stage + the selection of ekf_slam.da_commit's kernel
+// branch, i.e. this package's ops/slam_da_kernels.da_lanes_reference.
 //
 // One thread block per mission. Per mission, in order:
 //   1. optional motion predict of the Σ slabs it reads: Spp' = A Spp Aᵀ + R̃,
@@ -17,14 +18,25 @@
 //      to the lowest row index, as the reference's jnp.argmin does;
 //   5. the sequential capacity-denial prefix and the per-detection selection
 //      (H_sel, S⁻¹H, ν, cand, col_to_row, do, add, slot).
+// Only rows 0:6 of Σ are read for Spp/Spl (Sll comes from the band when it
+// is given), so the same kernel takes the marginal fleet's pose rows (B,8,D)
+// in place of Σ (B,D,D): the per-mission stride is an argument.
 //
 // What bounds it on the H100: latency, not bytes or FLOPs. A mission reads
 // ~6 KB of Σ slabs at L=64 and the arithmetic is ~100 kFLOP; the serial parts
 // are the JV (≤ M(M+1)/2 Dijkstra steps of one warp) and the selection.
-// Design: everything lives in shared memory (~16 KB at L=64, M=8) and the
-// slot loop spreads over the block; with B=128 missions the grid is about one
-// wave on 132 SMs. Built with -fmad=false so the gate and cost arithmetic
-// rounds each product like the plain PyTorch version's elementwise ops.
+// Design: everything lives in shared memory (~16 KB at L=64, M=8; ~56 KB at
+// L=256) and the slot loop spreads over the block; with B=128 missions the
+// grid is about one wave on 132 SMs. Built with -fmad=false so the gate and
+// cost arithmetic rounds each product like the plain PyTorch version's
+// elementwise ops.
+//
+// K11 replaces smarc_navigation_tpu/ops/slam_da_kernels.py::hungarian_lanes
+// (pallas_call at :616, body _make_jv_kernel): the exact JV of an (R, C) cost
+// table per mission, one warp per mission on the table staged in shared
+// memory, the same device function as K1's step 4 (same duals, same tie
+// rule as ops/assignment.hungarian). Bound: latency of the serial Dijkstra
+// steps (≤ C(C+1)/2 warp-wide argmins over R rows); the table is read once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -266,7 +278,7 @@ __device__ void jv_warp(const float* cost, int R, int C, Shared& s) {
 
 template <bool FLS, bool PREDICT>
 __global__ void __launch_bounds__(kThreads)
-da_kernel(int L, int M, int D, int use_band,
+da_kernel(int L, int M, int D, long long sig_stride, int use_band,
           const float* __restrict__ pose6, const int* __restrict__ n_active,
           const bool* __restrict__ active, const float* __restrict__ lm_pos,
           const float* __restrict__ Sigma, const float* __restrict__ z,
@@ -284,7 +296,7 @@ da_kernel(int L, int M, int D, int use_band,
   const int tid = threadIdx.x;
   const int R = L + M;
   const float* pose = pose6 + (size_t)b * 6;
-  const float* Sg = Sigma + (size_t)b * D * D;
+  const float* Sg = Sigma + (size_t)b * sig_stride;  // row stride D either way
   const float* zb = z + (size_t)b * M * 3;
   const bool* mb = z_mask + (size_t)b * M;
   const float* Ab = PREDICT ? A + (size_t)b * 36 : nullptr;
@@ -509,7 +521,8 @@ da_kernel(int L, int M, int D, int use_band,
 }
 
 template <bool FLS, bool PREDICT>
-cudaError_t launch(int B, int L, int M, int D, int use_band, cudaStream_t stream,
+cudaError_t launch(int B, int L, int M, int D, long long sig_stride, int use_band,
+                   cudaStream_t stream,
                    const float* pose6, const int* n_active, const bool* active,
                    const float* lm_pos, const float* Sigma, const float* z,
                    const bool* z_mask, const float* par, const float* A,
@@ -523,17 +536,46 @@ cudaError_t launch(int B, int L, int M, int D, int use_band, cudaStream_t stream
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<B, kThreads, smem, stream>>>(L, M, D, use_band, pose6, n_active, active,
+  kern<<<B, kThreads, smem, stream>>>(L, M, D, sig_stride, use_band, pose6, n_active, active,
                                       lm_pos, Sigma, z, z_mask, par, A, r_full,
                                       band, ctr, H_sel, SinvH, nu_sel, cand,
                                       do_out, add_out, slot);
   return cudaGetLastError();
 }
 
+// K11: one warp per mission solves its (R, C) table (row-major, [r*C + c]).
+__global__ void __launch_bounds__(32)
+jv_kernel(int R, int C, const float* __restrict__ cost, int* __restrict__ col_to_row) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  float* tab = smem;
+  Shared s;
+  float* f = tab + (size_t)R * C;
+  s.v = f; f += R;
+  s.minv = f; f += R;
+  s.u = f; f += C;
+  int* i = reinterpret_cast<int*>(f);
+  s.way = i; i += R;
+  s.used = i; i += R;
+  s.p = i;
+  const float* cb = cost + (size_t)b * R * C;
+  for (int k = lane; k < R * C; k += 32) tab[k] = cb[k];
+  __syncwarp();
+  jv_warp(tab, R, C, s);
+  if (lane == 0) {
+    int* out = col_to_row + (size_t)b * C;
+    for (int c = 0; c < C; ++c) out[c] = -1;
+    for (int r = 0; r < R; ++r)
+      if (s.p[r] >= 0) out[s.p[r]] = r;
+  }
+}
+
 }  // namespace
 
 extern "C" int slam_da_launch(int device, void* stream, int B, int L, int M,
-                              int D, int fls, int predict, int use_band,
+                              int D, int pose_rows, int fls, int predict,
+                              int use_band,
                               const void* pose6, const void* n_active,
                               const void* active, const void* lm_pos,
                               const void* Sigma, const void* z,
@@ -544,9 +586,11 @@ extern "C" int slam_da_launch(int device, void* stream, int B, int L, int M,
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B < 1 || L < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  if (pose_rows && !use_band) return (int)cudaErrorInvalidValue;  // Sll needs the band
+  const long long sig_stride = pose_rows ? 8LL * D : (long long)D * D;
   auto st = static_cast<cudaStream_t>(stream);
 #define SLAM_DA_ARGS                                                          \
-  B, L, M, D, use_band, st, (const float*)pose6, (const int*)n_active,        \
+  B, L, M, D, sig_stride, use_band, st, (const float*)pose6, (const int*)n_active,        \
       (const bool*)active, (const float*)lm_pos, (const float*)Sigma,         \
       (const float*)z, (const bool*)z_mask, (const float*)par,                \
       (const float*)A, (const float*)r_full, (const float*)band, (int*)ctr,   \
@@ -558,4 +602,21 @@ extern "C" int slam_da_launch(int device, void* stream, int B, int L, int M,
     e = predict ? launch<false, true>(SLAM_DA_ARGS) : launch<false, false>(SLAM_DA_ARGS);
 #undef SLAM_DA_ARGS
   return (int)e;
+}
+
+extern "C" int hungarian_lanes_launch(int device, void* stream, int B, int R, int C,
+                                      const void* cost, void* col_to_row) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  if (B < 1 || C < 1 || C > R) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)R * C + 2 * (size_t)R + C) * sizeof(float) +
+                      (3 * (size_t)R + 1) * sizeof(int);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(jv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  jv_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      R, C, (const float*)cost, (int*)col_to_row);
+  return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-// K2 / K3: the EKF-SLAM sequential measurement update of one tick.
+// K2 / K3: the EKF-SLAM sequential measurement update of one tick, and the
+// first phase of K2's streamed schedule.
 //
 // Replaces the TPU kernels smarc_navigation_tpu/ops/slam_kernels.py::
 // sequential_update_fleet (K2, pallas_call at :791, body
@@ -18,10 +19,17 @@
 // invariant, as the TPU kernel does). Update j needs only the nine (pose,
 // slot) rows of Σ_j, assembled per column from Σ' minus the earlier factors;
 // U_j and V_j go to global scratch, so the kernel is correct for any D.
-// After the M updates one pass writes Σ_out = ½(s + sᵀ), s = Σ' + Act − UᵀV
-// (exactly symmetric: the two products are the same instructions), then
-// μ_out = μ + (cand on added slots) + Σ_j ν_jᵀ U_j with one angle wrap, and
-// the (24, L) landmark band is read from Σ_out's diagonal blocks.
+// After the M updates, μ_out = μ + (cand on added slots) + Σ_j ν_jᵀ U_j with
+// one angle wrap, and every entry of the new Σ is ½(s_ic + s_ci),
+// s = Σ' + Act − UᵀV, both products taken with the same fmaf sequence (so
+// Σ_out is exactly symmetric); the (24, L) landmark band is computed by the
+// same entry function.
+// One-kernel schedule (Sigma_out given): the block also writes every entry
+// of Σ_out. Streamed schedule, phase 1 (Sigma_out null): the block stops
+// before the downdate and writes U, V, μ, the band, the predicted pose rows
+// and Act's diagonal; K12 (csrc/slam_downdate.cu) then writes Σ_out with the
+// same entry arithmetic over a grid of (tile pair, mission) blocks, so the
+// two schedules agree bit for bit.
 //
 // Bytes: Σ is read in the final pass (twice, the second read transposed and
 // mostly served by L1/L2) and written once: ~2 × 157 KB per mission at
@@ -32,25 +40,19 @@
 // What bounds it on the H100: load latency, not bytes. One 256-thread block
 // per mission leaves each SM with 8 warps, and every Σ entry of the downdate
 // reads 2·M·dim U/V values from L1/L2; the measured call (~0.43 ms at the
-// headline) is far above the byte floor. Keeping U/V in shared memory and
-// tiling the downdate is the next step.
+// L=64 headline on an NVIDIA H100 80GB HBM3 at 700.00 W) is far above the
+// byte floor. At L=256 (D=774, B=32: 32 blocks on 132 SMs) the one-kernel
+// downdate is the whole cost (8.06 ms on that card), which is what the
+// streamed schedule's tiled K12 removes (phase 1 + K12: 0.40 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "slam_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr float kPi = 3.14159265358979323846f;
-
-__device__ inline float wrap_angle(float a) {
-  // floored modulo, as jnp.mod / torch.remainder: mod(a + π, 2π) − π
-  const float two_pi = 2.0f * kPi;
-  const float x = a + kPi;
-  float r = fmodf(x, two_pi);
-  if (r != 0.0f && (r < 0.0f) != (two_pi < 0.0f)) r += two_pi;
-  return r - kPi;
-}
 
 __global__ void __launch_bounds__(kThreads)
 update_kernel(int D, int M, int dim, int L,
@@ -62,7 +64,7 @@ update_kernel(int D, int M, int dim, int L,
               const float* __restrict__ a8, float* __restrict__ P,
               float* __restrict__ U, float* __restrict__ V,
               float* __restrict__ Sigma_out, float* __restrict__ mu_out,
-              float* __restrict__ band_out) {
+              float* __restrict__ band_out, float* __restrict__ act_out) {
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int K = M * dim;
@@ -166,15 +168,13 @@ update_kernel(int D, int M, int dim, int L,
       for (int d = 0; d < dim; ++d)
         m += nu[((size_t)b * M + k) * dim + d] * Ub[(k * dim + d) * D + c];
     }
-    if (c >= 3 && c < 6) m = wrap_angle(m);
+    if (c >= 3 && c < 6) m = slam::wrap_angle(m);
     mu_out[(size_t)b * D + c] = m;
   }
 
-  // --- one symmetric downdate pass over Σ ------------------------------------
-  float* So = Sigma_out + (size_t)b * D * D;
+  // --- the new Σ: entry (i, c) = ½(s_ic + s_ci), s = Σ' + Act − UᵀV ------------
   const int last = M - 1;
-  for (int idx = tid; idx < D * D; idx += blockDim.x) {
-    const int i = idx / D, c = idx % D;
+  auto entry = [&](int i, int c) -> float {
     float s_ic = sp(i, c) + act(i, c, last);
     float s_ci = sp(c, i) + act(c, i, last);
     for (int k = 0; k < M; ++k) {
@@ -182,24 +182,28 @@ update_kernel(int D, int M, int dim, int L,
       for (int d = 0; d < dim; ++d) {
         const float* u = Ub + (k * dim + d) * D;
         const float* v = Vb + (k * dim + d) * D;
-        s_ic -= u[i] * v[c];
-        s_ci -= u[c] * v[i];
+        s_ic = fmaf(-u[i], v[c], s_ic);
+        s_ci = fmaf(-u[c], v[i], s_ci);
       }
     }
-    So[idx] = 0.5f * (s_ic + s_ci);
+    return 0.5f * (s_ic + s_ci);
+  };
+  if (Sigma_out) {  // one-kernel schedule: the whole downdate here
+    float* So = Sigma_out + (size_t)b * D * D;
+    for (int idx = tid; idx < D * D; idx += blockDim.x) So[idx] = entry(idx / D, idx % D);
+  } else {  // streamed phase 1: what K12 needs besides U, V and P
+    for (int c = tid; c < D; c += blockDim.x) act_out[(size_t)b * D + c] = act(c, c, last);
   }
 
-  // --- landmark block-diagonal band from the new Σ ----------------------------
+  // --- landmark block-diagonal band of the new Σ -------------------------------
   if (band_out) {
-    __syncthreads();
     for (int idx = tid; idx < 24 * L; idx += blockDim.x) {
       const int row = idx / L, l = idx % L;
       const int a = row / 8, d = row % 8;
       float val = 0.0f;
       if (d < 3) {
         const int i = 6 + 3 * l + a;
-        const int c = i + d < D - 1 ? i + d : D - 1;
-        val = So[(size_t)i * D + c];
+        val = entry(i, i + d < D - 1 ? i + d : D - 1);
       }
       band_out[(size_t)b * 24 * L + idx] = val;
     }
@@ -216,16 +220,17 @@ extern "C" int slam_update_launch(int device, void* stream, int B, int D, int M,
                                   const void* add, const void* new_lm_cov,
                                   const void* cand, const void* a8, void* P,
                                   void* U, void* V, void* Sigma_out,
-                                  void* mu_out, void* band_out) {
+                                  void* mu_out, void* band_out, void* act_out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (B < 1 || D < 9 || M < 1 || (dim != 2 && dim != 3))
     return (int)cudaErrorInvalidValue;
+  if (!Sigma_out && !act_out) return (int)cudaErrorInvalidValue;  // phase 1 needs Act
   update_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       D, M, dim, L, (const float*)Sigma, (const float*)mu, (const float*)H_sel,
       (const float*)SinvH, (const float*)nu, (const int*)lm_ix,
       (const bool*)do_, (const bool*)add, (const float*)new_lm_cov,
       (const float*)cand, (const float*)a8, (float*)P, (float*)U, (float*)V,
-      (float*)Sigma_out, (float*)mu_out, (float*)band_out);
+      (float*)Sigma_out, (float*)mu_out, (float*)band_out, (float*)act_out);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
 """Online EKF-SLAM with MBES / FLS landmark detections (PyTorch port of
-``smarc_navigation_tpu/models/ekf_slam.py``, slice 1).
+``smarc_navigation_tpu/models/ekf_slam.py``).
 
 The state is a fixed-size padded bank of ``max_landmarks`` 3-DOF slots with
 an ``active`` mask (landmark "addition" is a slot activation), exactly as
@@ -8,15 +8,19 @@ in the reference; see its module docstring for the mapping onto the ROS
 and shapes. The fleet replay ``run_fleet`` is a Python loop over ticks whose
 every event pass runs the data-association kernel (K1,
 ``ops.slam_da_kernels.da_lanes``) and the sequential-update kernel (K2,
-``ops.slam_kernels.sequential_update_fleet``); ``step``'s kernel branch runs
+``ops.slam_kernels.sequential_update_fleet``; at D >= 512 its streamed
+schedule, phase 1 + the tiled downdate K12); ``step``'s kernel branch runs
 K3 (``ops.slam_kernels.sequential_update``). ``run_fleet_compact`` runs the
 same event pass on event ticks only, with the predicts in between composed
-beforehand. Each wrapper launches its CUDA kernel for CUDA tensors and takes
-its plain PyTorch version for CPU tensors.
+beforehand. ``run_fleet(update_mode="marginal")`` is the reference's own
+9×9 marginal writeback on a pose-rows + band carry (``run_fleet_marginal``:
+K1 in its pose-rows form, then K4,
+``ops.slam_kernels.sequential_update_marginal_fleet``). Each wrapper
+launches its CUDA kernel for CUDA tensors and takes its plain PyTorch
+version for CPU tensors.
 
-Not yet ported (see ROADMAP.md Queue 1): the marginal covariance modes and
-mission sharding (``run_fleet(device_mesh=...)``) raise
-``NotImplementedError``; ``run_fleet_marginal`` is absent.
+Not yet ported (see ROADMAP.md Queue 1): mission sharding
+(``run_fleet(device_mesh=...)``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,10 +35,11 @@ from torch.func import jacfwd, vmap
 
 from ..configs import EKFSlamConfig
 from ..ops import assignment, slam_da_kernels, slam_kernels
+from ..ops.timeline import build_timeline
 from ..utils.geometry import Transform, rotmat_from_rpy, rpy_from_quat, wrap_angle
 from ..utils.linalg import chi2_quantile, inv_small
 
-_LATER = "not in the port's first slice; see ROADMAP.md Queue 1"
+_LATER = "not ported yet (mission sharding); see ROADMAP.md Queue 1"
 
 
 class SlamParams(NamedTuple):
@@ -59,7 +64,7 @@ def make_params(
     cfg: EKFSlamConfig = EKFSlamConfig(),
     tf_base_fls: Transform | None = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> SlamParams:
     if tf_base_fls is None:
         tf_base_fls = Transform.identity(dtype, device)
@@ -86,7 +91,7 @@ def init_state(
     mu0=None,
     beacons: np.ndarray | None = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> SlamState:
     """Initial state; ``beacons`` pre-activates known-map landmark slots with
     the beacon prior covariance (``ekf_slam.cpp:141-175``)."""
@@ -373,13 +378,15 @@ def da_commit(
     sequence (the reference's ``upd_dense``); ``"kernel"`` — slots and
     activations precomputed for the whole pass, then the update-loop kernel
     (K3, ``ops.slam_kernels.sequential_update``; its plain version on the
-    CPU); ``"auto"`` — ``"kernel"`` for CUDA state, ``"full"`` elsewhere."""
+    CPU); ``"marginal"`` — the reference's own semantics
+    (``ekf_slam_core.cpp:351-371``): each update writes back only the 9×9
+    (pose, matched landmark) marginal and leaves the other
+    cross-covariances as they are (the reference's ``upd2``); ``"auto"`` —
+    ``"kernel"`` for CUDA state, ``"full"`` elsewhere."""
     L = cfg.max_landmarks
     if update_mode == "auto":
         update_mode = "kernel" if state.mu.is_cuda else "full"
-    if update_mode == "marginal":
-        raise NotImplementedError(f"update_mode={update_mode!r} is {_LATER}")
-    if update_mode not in ("full", "kernel"):
+    if update_mode not in ("full", "kernel", "marginal"):
         raise ValueError(f"unknown update_mode {update_mode!r}")
     mu, Sigma = state.mu, state.Sigma
     M = z.shape[0]
@@ -416,9 +423,13 @@ def da_commit(
         return SlamState(mu=mu, Sigma=Sigma, active=active, n_active=n_active,
                          mu_auv_odom=state.mu_auv_odom), matched
 
-    # dense in-place sequence in measurement order (upd_dense)
+    # the sequence in measurement order: the dense full update (upd_dense) or
+    # the reference's 9×9 marginal writeback (upd2)
+    marginal = update_mode == "marginal"
     active, n_active = state.active, state.n_active
     ar3 = torch.arange(3, device=dev)
+    pose_ix = torch.arange(6, device=dev)
+    eye9 = torch.eye(9, dtype=dt, device=dev)
     matched = []
     for m in range(M):
         r = col_to_row[m]
@@ -434,8 +445,10 @@ def da_commit(
 
         add = do & is_new
         mu = torch.where(add, mu.index_put((idx3,), cand[m].to(dt)), mu)
-        # inactive rows/cols are zero by invariant; diag set == add
-        Sigma = torch.where(add, Sigma.index_put((idx3[:, None], idx3[None, :]),
+        # the full path's inactive rows/cols are zero by invariant (diag set ==
+        # add); the marginal path zeroes the slot's rows and columns first
+        S_add = Sigma.index_fill(0, idx3, 0.0).index_fill(1, idx3, 0.0) if marginal else Sigma
+        Sigma = torch.where(add, S_add.index_put((idx3[:, None], idx3[None, :]),
                                                  torch.diag(new_cov)), Sigma)
         active = torch.where(add, active.index_put((slot_c,),
                                                    torch.tensor(True, device=dev)), active)
@@ -445,13 +458,25 @@ def da_commit(
         Sinv_i = torch.where(is_new, S_inv_cand[m], S_inv[r_clip])
         nu_i = torch.where(is_new, nu_cand[m], nu[r_clip, m])
 
-        rows = torch.cat([Sigma[0:6, :], Sigma[idx3, :]], dim=0)      # (9,D)
-        Kt = (Sinv_i @ H_i) @ rows                                     # (dim,D)
-        mu_new = mu + nu_i @ Kt
-        mu_new = torch.cat([mu_new[0:3], wrap_angle(mu_new[3:6]), mu_new[6:]])
-        Vt = H_i @ rows                                                # (dim,D)
-        Sigma_new = Sigma - Kt.T @ Vt
-        Sigma_new = 0.5 * (Sigma_new + Sigma_new.T)
+        if marginal:   # Σ9' = (I − K H) Σ9, K = Σ9 Hᵀ S⁻¹, written back alone
+            idx9 = torch.cat([pose_ix, idx3])
+            Sig9 = Sigma[idx9[:, None], idx9[None, :]]
+            K = Sig9 @ H_i.T @ Sinv_i                                  # (9,dim)
+            delta = K @ nu_i
+            mu_new = mu.clone()
+            mu_new[0:6] = mu_new[0:6] + delta[0:6]
+            mu_new[3:6] = wrap_angle(mu_new[3:6])
+            mu_new[idx3] = mu_new[idx3] + delta[6:9]
+            Sigma_new = Sigma.index_put((idx9[:, None], idx9[None, :]),
+                                        (eye9 - K @ H_i) @ Sig9)
+        else:
+            rows = torch.cat([Sigma[0:6, :], Sigma[idx3, :]], dim=0)  # (9,D)
+            Kt = (Sinv_i @ H_i) @ rows                                 # (dim,D)
+            mu_new = mu + nu_i @ Kt
+            mu_new = torch.cat([mu_new[0:3], wrap_angle(mu_new[3:6]), mu_new[6:]])
+            Vt = H_i @ rows                                            # (dim,D)
+            Sigma_new = Sigma - Kt.T @ Vt
+            Sigma_new = 0.5 * (Sigma_new + Sigma_new.T)
 
         mu = torch.where(do, mu_new, mu)
         Sigma = torch.where(do, Sigma_new, Sigma)
@@ -589,23 +614,16 @@ def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
     return new_state, matched
 
 
-def _fleet_predict(state_b: SlamState, odom_pose: torch.Tensor,
-                   valid: torch.Tensor, params: SlamParams,
-                   predict_sigma: bool = False):
-    """Batched ``predict`` with the odom-validity gate folded into the
-    inputs: valid=False gives an exact no-op (u_t=0, A the exact identity,
-    R̃ gated to zero, attitude kept).
-
-    Returns ``(state, a8)``. By default Σ is left untouched and the motion
-    Jacobian comes back packed as a8 (B, 8, 16): cols 0:8 = blockdiag(A6,
-    I2), cols 8:14 of rows 0:6 = R̃ = R·valid, for the kernels to apply to
-    what they read. With ``predict_sigma=True`` (no event pass this tick to
-    carry it) Σ is predicted here and a8 comes back None."""
-    dt, dev = state_b.mu.dtype, state_b.mu.device
+def _predict_a8(mu_b, mu_auv_odom, odom_pose, valid, params: SlamParams):
+    """The fleet predict's μ bookkeeping and its packed motion Jacobian:
+    returns ``(mu, u_t, a8)``, a8 (B, 8, 16) with cols 0:8 = blockdiag(A6,
+    I2) and cols 8:14 of rows 0:6 = R̃ = R·valid. valid=False gives an exact
+    no-op (u_t=0, A the exact identity, R̃ zero, attitude kept)."""
+    dt, dev = mu_b.dtype, mu_b.device
     v1 = valid.to(dt)[:, None]
-    u_t = (odom_pose[:, 0:3] - state_b.mu_auv_odom) * v1
-    att = torch.where(valid[:, None], wrap_angle(odom_pose[:, 3:6]), state_b.mu[:, 3:6])
-    mu = torch.cat([state_b.mu[:, 0:3] + u_t, att, state_b.mu[:, 6:]], dim=1)
+    u_t = (odom_pose[:, 0:3] - mu_auv_odom) * v1
+    att = torch.where(valid[:, None], wrap_angle(odom_pose[:, 3:6]), mu_b[:, 3:6])
+    mu = torch.cat([mu_b[:, 0:3] + u_t, att, mu_b[:, 6:]], dim=1)
 
     g = _motion_jacobian(att, u_t)                                     # (B,3,3)
     c1 = torch.zeros((8, 16), dtype=dt, device=dev)
@@ -613,13 +631,25 @@ def _fleet_predict(state_b: SlamState, odom_pose: torch.Tensor,
     c1[0:6, 8:14] = params.R.to(dt)
     c2 = torch.eye(8, 16, dtype=dt, device=dev)
     a8 = torch.where(valid[:, None, None], F.pad(g, (3, 10, 0, 5)) + c1, c2)
+    return mu, u_t, a8
 
+
+def _fleet_predict(state_b: SlamState, odom_pose: torch.Tensor,
+                   valid: torch.Tensor, params: SlamParams,
+                   predict_sigma: bool = False):
+    """Batched ``predict`` with the odom-validity gate folded into the
+    inputs (see ``_predict_a8``).
+
+    Returns ``(state, a8)``. By default Σ is left untouched and the motion
+    Jacobian comes back packed as a8 for the kernels to apply to what they
+    read. With ``predict_sigma=True`` (no event pass this tick to carry it)
+    Σ is predicted here and a8 comes back None."""
+    mu, u_t, a8 = _predict_a8(state_b.mu, state_b.mu_auv_odom, odom_pose, valid, params)
     Sigma = state_b.Sigma
     if predict_sigma:
         S = state_b.Sigma
-        A = a8[:, 0:6, 0:6]
-        S11 = (torch.einsum("bij,bjk,blk->bil", A, S[:, 0:6, 0:6], A)
-               + params.R * v1[:, :, None])
+        A, R = a8[:, 0:6, 0:6], a8[:, 0:6, 8:14]
+        S11 = torch.einsum("bij,bjk,blk->bil", A, S[:, 0:6, 0:6], A) + R
         S1L = torch.einsum("bij,bjk->bik", A, S[:, 0:6, 6:])
         Sigma = S.clone()
         Sigma[:, 0:6, 0:6] = S11
@@ -629,6 +659,32 @@ def _fleet_predict(state_b: SlamState, odom_pose: torch.Tensor,
     return SlamState(mu=mu, Sigma=Sigma, active=state_b.active,
                      n_active=state_b.n_active,
                      mu_auv_odom=state_b.mu_auv_odom + u_t), a8
+
+
+def _fleet_inputs(tl):
+    """Per-tick (T, B, ...) views of a batched timeline's odometry and
+    events: (odom poses, validity, event sensor names, {name: (z, mask)});
+    an event counts only where the odometry is valid."""
+    odom = tl.channels["odom"]
+    odom_pose_t = _odom_pose(odom.value).transpose(0, 1).contiguous()   # (T,B,6)
+    valid_t = odom.valid.transpose(0, 1).contiguous()                   # (T,B)
+    names = [n for n in ("mbes", "fls") if n in tl.events]
+    ev_t = {n: (tl.events[n].value.transpose(0, 1).contiguous(),
+                (tl.events[n].mask & odom.valid[:, :, None]).transpose(0, 1).contiguous())
+            for n in names}
+    return odom_pose_t, valid_t, names, ev_t
+
+
+def _run_per_mission(tl, params, cfg, update_mode):
+    """``run`` of each mission of a batched timeline, stacked as the fleet
+    replay stacks it (final state (B, ...), outputs (T, B, ...))."""
+    finals, outs = [], []
+    for b in range(tl.ticks.shape[0]):
+        f, o = run(tl.map(lambda x: x[b]), params, cfg, update_mode=update_mode)
+        finals.append(f)
+        outs.append(o)
+    final = SlamState(*(torch.stack(xs) for xs in zip(*finals)))
+    return final, {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
 
 
 def run_fleet(
@@ -644,11 +700,20 @@ def run_fleet(
     Every tick: ``_fleet_predict`` in PyTorch, then for each event sensor
     one ``da_lanes_pass`` (K1 + K2); the first pass carries the predict's Σ
     transform. Semantics are the reference's ``run_fleet`` (= vmapped
-    ``run`` with full updates). No host sync inside the tick loop."""
+    ``run`` with full updates). No host sync inside the tick loop.
+
+    ``update_mode="marginal"`` is ``run_fleet_marginal`` (K1 + K4 on the
+    pose-rows + band carry); ``"marginal_dense"`` and ``"kernel"`` replay
+    each mission through ``run`` with that covariance writeback, as the
+    reference does for its non-default modes."""
     if device_mesh is not None:
         raise NotImplementedError(f"device_mesh= is {_LATER}")
-    if update_mode in ("marginal", "marginal_dense"):
-        raise NotImplementedError(f"update_mode={update_mode!r} is {_LATER}")
+    if update_mode == "marginal":
+        return run_fleet_marginal(batched_timeline, params, cfg)
+    if update_mode == "marginal_dense":
+        update_mode = "marginal"
+    if update_mode in ("marginal", "kernel"):
+        return _run_per_mission(batched_timeline, params, cfg, update_mode)
     if update_mode not in ("auto", "full"):
         raise ValueError(f"unknown update_mode {update_mode!r}")
 
@@ -659,14 +724,7 @@ def run_fleet(
     s0 = init_state(cfg, dtype=params.R.dtype, device=dev)
     state = SlamState(*(x.expand((B,) + x.shape).contiguous() for x in s0))
     band = initial_band(s0.Sigma, L).expand(B, 24, L).contiguous()
-
-    odom = tl.channels["odom"]
-    odom_pose_t = _odom_pose(odom.value).transpose(0, 1).contiguous()   # (T,B,6)
-    valid_t = odom.valid.transpose(0, 1).contiguous()                   # (T,B)
-    names = [n for n in ("mbes", "fls") if n in tl.events]
-    ev_t = {n: (tl.events[n].value.transpose(0, 1).contiguous(),
-                (tl.events[n].mask & odom.valid[:, :, None]).transpose(0, 1).contiguous())
-            for n in names}
+    odom_pose_t, valid_t, names, ev_t = _fleet_inputs(tl)
 
     outs = []
     for t in range(T):
@@ -685,6 +743,148 @@ def run_fleet(
         outs.append(out)
         state = st
     return state, _stack_outputs(outs)
+
+
+# ---------------------------------------------------------------------------
+# marginal-writeback fleet: the reference's covariance semantics
+# ---------------------------------------------------------------------------
+
+class MarginalFleetState(NamedTuple):
+    """Fleet carry of the marginal-semantics path: under the reference's
+    own update (``ekf_slam_core.cpp:351-371``) cross-landmark covariance
+    blocks stay exactly zero, so pose rows + the landmark block-diagonal
+    band ARE the complete covariance."""
+    mu: torch.Tensor           # (B, D)
+    rows: torch.Tensor         # (B, 8, D) Σ[0:6, :] (rows 6:8 zero)
+    band: torch.Tensor         # (B, 24, L)
+    active: torch.Tensor       # (B, L) bool
+    n_active: torch.Tensor     # (B,) int32
+    mu_auv_odom: torch.Tensor  # (B, 3)
+
+
+def sigma_from_rows_band(rows: torch.Tensor, band: torch.Tensor, L: int) -> torch.Tensor:
+    """The full (B, D, D) covariance of a marginal-mode fleet: pose rows,
+    their transpose in the pose columns, and the landmark block diagonal;
+    every cross-landmark block is zero by the marginal-semantics invariant."""
+    B, _, D = rows.shape
+    pr = rows[:, 0:6, :]
+    Sig = rows.new_zeros((B, D, D))
+    Sig[:, :, 0:6] = pr.transpose(1, 2)
+    Sig[:, 0:6, :] = pr
+    la = 6 + 3 * torch.arange(L, device=rows.device)
+    for a in range(3):
+        for d in range(3 - a):
+            Sig[:, la + a, la + a + d] = band[:, a * 8 + d, :]
+            if d:
+                Sig[:, la + a + d, la + a] = band[:, a * 8 + d, :]
+    return Sig
+
+
+def _rows_block_fix(P1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
+    """Place the (B, 8, 8) predicted pose block into lanes 0:6 of the
+    left-multiplied rows (lanes >= 6 keep A·Σ[0:6, 6:])."""
+    return torch.cat([t2[:, :, 0:6], P1[:, :, 6:]], dim=2)
+
+
+def _fleet_predict_marginal(ms: MarginalFleetState, odom_pose, valid,
+                            params: SlamParams, predict_rows: bool):
+    """``_fleet_predict`` for the marginal carry: the μ bookkeeping is the
+    same; the covariance transform touches only the pose rows
+    (Σ'[0:6, 6:] = A Σ[0:6, 6:], Σ'66 = A Σ66 Aᵀ + R̃; landmark blocks are
+    untouched by the motion predict, ``ekf_slam_core.cpp:110-118``). With
+    ``predict_rows=False`` the transform rides the kernels via the returned
+    a8 and the rows come back untouched."""
+    mu, u_t, a8 = _predict_a8(ms.mu, ms.mu_auv_odom, odom_pose, valid, params)
+    rows = ms.rows
+    if predict_rows:
+        A8, r88 = a8[:, :, 0:8], a8[:, :, 8:16]
+        P1 = torch.einsum("bij,bjd->bid", A8, rows)
+        t2 = torch.einsum("bij,bjk,blk->bil", A8, rows[:, :, 0:8], A8) + r88
+        rows = _rows_block_fix(P1, t2)
+        a8 = None
+    return ms._replace(mu=mu, rows=rows, mu_auv_odom=ms.mu_auv_odom + u_t), a8
+
+
+def da_lanes_pass_marginal(ms: MarginalFleetState, z_b, mask_b,
+                           params: SlamParams, cfg: EKFSlamConfig,
+                           sensor: SensorSpec = None, a8=None):
+    """Fleet DA pass on the marginal carry: K1 reads Spp/Spl from the pose
+    rows and Sll from the band; the update is K4
+    (``slam_kernels.sequential_update_marginal_fleet``)."""
+    sensor = MBES if sensor is None else sensor
+    B = ms.mu.shape[0]
+    L = cfg.max_landmarks
+    dt, dev = ms.mu.dtype, ms.mu.device
+    fls = sensor.kind == "fls"
+    new_cov = torch.tensor(sensor.new_lm_cov, dtype=dt, device=dev)
+    ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = slam_da_kernels.da_lanes(
+        ms.mu[:, 0:6].contiguous(), ms.n_active, ms.active,
+        ms.mu[:, 6:].reshape(B, L, 3).contiguous(), None,
+        z_b[:, :, 0:3].contiguous(), mask_b.contiguous(),
+        torch.diagonal(sensor.q(params)), sensor.lam(params),
+        cfg.outlier_cost, sensor.mh_dist(cfg), new_cov, sensor=sensor.kind,
+        r_sb=params.r_fls_base if fls else None, t_sb=params.t_fls_base if fls else None,
+        A=a8[:, 0:6, 0:6].contiguous() if a8 is not None else None,
+        r_full=a8[:, 0:6, 8:14].contiguous() if a8 is not None else None,
+        band=ms.band, pose_rows=ms.rows,
+    )
+    active = torch.cat([ms.active, ms.active.new_zeros(B, 1)], 1).scatter(
+        1, torch.where(add, slot, L).long(), True)[:, :L].contiguous()
+    n_active = ms.n_active + add.sum(1, dtype=torch.int32)
+    rows, mu, band = slam_kernels.sequential_update_marginal_fleet(
+        ms.rows, ms.mu, H_sel, SinvH, nu_sel, 6 + 3 * slot, do, add, new_cov,
+        cand, ms.band, a8)
+    matched = torch.where(do, slot, torch.full_like(slot, -1))
+    return ms._replace(mu=mu, rows=rows, band=band, active=active,
+                       n_active=n_active), matched
+
+
+def run_fleet_marginal(
+    batched_timeline,
+    params: SlamParams,
+    cfg: EKFSlamConfig = EKFSlamConfig(),
+):
+    """Fleet replay under the reference's marginal covariance semantics
+    (the ``run_fleet`` counterpart of ``run(update_mode="marginal")``): the
+    carry is pose rows + band, nothing (D, D)-shaped exists in the tick
+    loop. Every tick: the predict's bookkeeping in PyTorch, then per event
+    sensor K1 (pose-rows form) + K4; the first pass carries the predict's
+    pose-row transform. Returns (final SlamState with the covariance
+    reconstructed once at the end, outputs stacked (T, B, ...))."""
+    tl = batched_timeline
+    B, T = tl.ticks.shape[0], tl.ticks.shape[1]
+    L = cfg.max_landmarks
+    s0 = init_state(cfg, dtype=params.R.dtype, device=tl.ticks.device)
+    D = s0.mu.shape[0]
+    rows0 = s0.Sigma.new_zeros((8, D))
+    rows0[0:6] = s0.Sigma[0:6]
+    ms = MarginalFleetState(
+        mu=s0.mu.expand(B, D).contiguous(),
+        rows=rows0.expand(B, 8, D).contiguous(),
+        band=initial_band(s0.Sigma, L).expand(B, 24, L).contiguous(),
+        active=s0.active.expand(B, L).contiguous(),
+        n_active=s0.n_active.expand(B).contiguous(),
+        mu_auv_odom=s0.mu_auv_odom.expand(B, 3).contiguous())
+    odom_pose_t, valid_t, names, ev_t = _fleet_inputs(tl)
+
+    outs = []
+    for t in range(T):
+        ms, a8 = _fleet_predict_marginal(ms, odom_pose_t[t], valid_t[t], params,
+                                         predict_rows=not names)
+        out = {}
+        for n in names:
+            z, m = ev_t[n][0][t], ev_t[n][1][t]
+            ms, matched = da_lanes_pass_marginal(
+                ms, z, m, params, cfg, MBES if n == "mbes" else FLS, a8=a8)
+            a8 = None
+            out["matched_" + n] = matched
+        out["mu"] = ms.mu[:, 0:6]
+        out["n_active"] = ms.n_active
+        outs.append(out)
+    final = SlamState(mu=ms.mu, Sigma=sigma_from_rows_band(ms.rows, ms.band, L),
+                      active=ms.active, n_active=ms.n_active,
+                      mu_auv_odom=ms.mu_auv_odom)
+    return final, _stack_outputs(outs)
 
 
 def _segmented_affine_scan(A: torch.Tensor, R: torch.Tensor, reset: torch.Tensor):
@@ -820,3 +1020,28 @@ def run_fleet_compact(
     e_idx = np.nonzero(ev_any)[0]
     seg_of = np.searchsorted(e_idx, np.arange(T), side="right")
     return _rfc_core(tl, params, e_idx, seg_of, ev_any, cfg, names)
+
+
+def map_to_odom_correction(mu_pose: torch.Tensor, odom_pose: torch.Tensor) -> Transform:
+    """tf map->odom correction (``bcMapOdomTF``, ``ekf_slam.cpp:263-294``):
+    composes the filter's map->base estimate with the inverse of the raw
+    odom->base odometry."""
+    return Transform.from_pose(mu_pose).compose(Transform.from_pose(odom_pose).inverse())
+
+
+def slam_timeline(mission, odom_track: np.ndarray, odom_ticks: np.ndarray,
+                  cfg: EKFSlamConfig = EKFSlamConfig()):
+    """SLAM timeline (numpy leaves): odometry channel (from a DR provider
+    run) + MBES events."""
+    det = mission.streams["mbes_detections"]
+    return build_timeline(
+        t0=0.0, t1=mission.spec.duration_s, freq_hz=cfg.system_freq,
+        channels={"odom": (odom_ticks, odom_track)},
+        events={"mbes": (det["stamps"], det["values"], det["burst"], cfg.max_obs)},
+    )
+
+
+def landmarks_map(state: SlamState, cfg: EKFSlamConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Current landmark estimates: (L, 3) positions + active mask (the RViz
+    marker output of the reference, ``ekf_slam.cpp:201-233``)."""
+    return state.mu[6:].reshape(cfg.max_landmarks, 3), state.active

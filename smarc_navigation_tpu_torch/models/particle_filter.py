@@ -67,7 +67,7 @@ def make_params(
     r_m2o: np.ndarray | None = None,
     t_m2o: np.ndarray | None = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> PFParams:
     def t(x):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)

@@ -114,7 +114,7 @@ def uniforms_call(seed: int, n: int, draw: int, device, seed_off: int = 0) -> to
         fn.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     out = torch.empty(n, dtype=torch.float32, device=device)
-    rc = fn(device.index if device.index is not None else torch.cuda.current_device(),
+    rc = fn(_tensors.device_index(device),
             _tensors.stream(device), n, int(seed), int(seed_off), int(draw), _tensors.ptr(out))
     _build.check(rc, "uniforms_call")
     return out
@@ -258,7 +258,7 @@ def _predict_launch(parts, par16, seeds, K, nticks, nxy, nyaw, single):
     sums = torch.empty((K, N_SUMS, n_partials(n)), dtype=torch.float32, device=dev)
     P = _tensors.ptr
     rc = _predict_lib()(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _tensors.device_index(dev),
         _tensors.stream(dev), n, K, nticks, int(nxy), int(nyaw), int(single),
         P(parts), P(par16), P(seeds), P(out), P(sums))
     _build.check(rc, "predict_call" if single else "predict_call_multi")
@@ -397,7 +397,7 @@ def _resample_launch(m_cum, parts, jitter_sd, seed, seed_off, what):
             if jitter else None)
     P = _tensors.ptr
     rc = _resample_lib()(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _tensors.device_index(dev),
         _tensors.stream(dev), n, rows, int(m_cum is not None), int(jitter),
         P(m_cum), P(parts), P(jitter_sd), P(seed), int(seed_off), P(out), P(sums))
     _build.check(rc, what)

@@ -1,4 +1,5 @@
-"""K1: the whole SLAM data-association stage for a fleet, one call per pass.
+"""K1: the whole SLAM data-association stage for a fleet, one call per pass;
+K11: the fleet's exact assignment on its own.
 
 ``da_lanes`` launches the CUDA kernel ``csrc/slam_da.cu`` (one thread block
 per mission: correspondence over every landmark slot, back-projected
@@ -7,12 +8,17 @@ Jonker-Volgenant assignment and the per-detection selection) for CUDA
 tensors, and takes its plain PyTorch version ``da_lanes_reference`` for CPU
 tensors. It replaces the TPU kernel
 ``smarc_navigation_tpu/ops/slam_da_kernels.py::da_lanes`` and keeps its
-signature (minus the marginal-fleet ``pose_rows`` input and the unused
-``valid``) and its outputs.
+signature (minus the unused ``valid``) and its outputs. With ``pose_rows``
+(the marginal fleet's (B, 8, D) Σ[0:6, :]) in place of Σ, Spp/Spl come
+from the rows and Sll from the band.
 
-The plain version is the batched ``ekf_slam.da_stage`` on the three Σ slabs,
-the per-mission ``assignment.hungarian`` and the kernel-branch selection of
-``ekf_slam.da_commit``.
+``hungarian_lanes`` (K11) launches the same source's one-warp JV per
+mission on a (B, R, C) cost, replacing the TPU kernel of that name; its
+plain version solves each mission with ``assignment.hungarian``.
+
+The plain version of K1 is the batched ``ekf_slam.da_stage`` on the three Σ
+slabs, the per-mission ``assignment.hungarian`` and the kernel-branch
+selection of ``ekf_slam.da_commit``.
 """
 
 from __future__ import annotations
@@ -25,14 +31,14 @@ from torch.func import vmap
 from .. import _build, _tensors
 from .assignment import hungarian
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 19
+_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 19
+_JV_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
 
-def _lib():
-    lib = _build.load("slam_da")
-    fn = lib.slam_da_launch
+def _lib(name="slam_da_launch", argtypes=_ARGTYPES):
+    fn = getattr(_build.load("slam_da"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
 
@@ -58,7 +64,7 @@ def da_lanes(
     n_active: torch.Tensor,  # (B,) int32
     active: torch.Tensor,    # (B, L) bool
     lm_pos: torch.Tensor,    # (B, L, 3)
-    Sigma: torch.Tensor,     # (B, D, D), D = 6 + 3L
+    Sigma: torch.Tensor,     # (B, D, D), D = 6 + 3L; None with pose_rows
     z: torch.Tensor,         # (B, M, 3)
     z_mask: torch.Tensor,    # (B, M) bool
     q_diag: torch.Tensor,    # (dim,)
@@ -72,6 +78,9 @@ def da_lanes(
     r_full: torch.Tensor = None,  # (B,6,6) motion-noise block R̃ (validity-gated)
     band: torch.Tensor = None,  # (B, 24, L) landmark block-diag band:
                                 #   band[b, a*8+d, l] = Σ[b, 6+3l+a, 6+3l+a+d]
+    pose_rows: torch.Tensor = None,  # (B, 8, D) Σ[0:6, :] (rows 6:8 padding),
+                                #   the marginal fleet's covariance state:
+                                #   Spp/Spl from the rows, Sll from the band
 ):
     """Whole DA stage (MBES or FLS) for a fleet -> per-measurement tensors.
 
@@ -88,7 +97,11 @@ def da_lanes(
         raise ValueError("the FLS form needs r_sb and t_sb")
     if (A is None) != (r_full is None):
         raise ValueError("A and r_full go together")
-    dev = Sigma.device
+    if pose_rows is not None and band is None:
+        raise ValueError("pose_rows requires the band carry for Sll")
+    if (pose_rows is None) == (Sigma is None):
+        raise ValueError("give exactly one of Sigma and pose_rows")
+    dev = z.device
     B, M = z.shape[0], z.shape[1]
     L = active.shape[1]
     D = 6 + 3 * L
@@ -101,7 +114,10 @@ def da_lanes(
     c(n_active, "n_active", (B,), i32, dev)
     c(active, "active", (B, L), torch.bool, dev)
     c(lm_pos, "lm_pos", (B, L, 3), f32, dev)
-    c(Sigma, "Sigma", (B, D, D), f32, dev)
+    if pose_rows is not None:
+        c(pose_rows, "pose_rows", (B, 8, D), f32, dev)
+    else:
+        c(Sigma, "Sigma", (B, D, D), f32, dev)
     c(z, "z", (B, M, 3), f32, dev)
     c(z_mask, "z_mask", (B, M), torch.bool, dev)
     if A is not None:
@@ -112,7 +128,8 @@ def da_lanes(
     if dev.type == "cpu":
         return da_lanes_reference(
             pose6, n_active, active, lm_pos, Sigma, z, z_mask, q_diag, lam,
-            outlier, mh_dist, new_lm_cov, sensor, r_sb, t_sb, A, r_full, band)
+            outlier, mh_dist, new_lm_cov, sensor, r_sb, t_sb, A, r_full, band,
+            pose_rows)
     if dev.type != "cuda":
         raise ValueError(f"da_lanes runs on CUDA or CPU tensors, not {dev}")
     par = _params_vec(q_diag, lam, outlier, mh_dist, new_lm_cov,
@@ -129,10 +146,11 @@ def da_lanes(
     slot = torch.empty((B, M), dtype=i32, device=dev)
     P = _tensors.ptr
     rc = _lib()(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        _tensors.stream(dev), B, L, M, D, int(sensor == "fls"),
-        int(A is not None), int(band is not None),
-        P(pose6), P(n_active), P(active), P(lm_pos), P(Sigma), P(z), P(z_mask),
+        _tensors.device_index(dev),
+        _tensors.stream(dev), B, L, M, D, int(pose_rows is not None),
+        int(sensor == "fls"), int(A is not None), int(band is not None),
+        P(pose6), P(n_active), P(active), P(lm_pos),
+        P(pose_rows if pose_rows is not None else Sigma), P(z), P(z_mask),
         P(par), P(A), P(r_full), P(band),
         P(ctr), P(H_sel), P(SinvH), P(nu_sel), P(cand), P(do), P(add), P(slot))
     _build.check(rc, "da_lanes")
@@ -143,24 +161,31 @@ def da_lanes(
 da_lanes.launches = 0
 
 
-def da_lanes_reference(
+def da_tables_reference(
     pose6, n_active, active, lm_pos, Sigma, z, z_mask, q_diag, lam, outlier,
     mh_dist, new_lm_cov, sensor="mbes", r_sb=None, t_sb=None, A=None,
-    r_full=None, band=None,
+    r_full=None, band=None, pose_rows=None,
 ):
-    """Plain PyTorch version of ``da_lanes`` (same arguments and outputs)."""
+    """The plain DA stage up to the assignment (``da_lanes``' arguments) ->
+    (the (B, L+M, M) cost tables, the staged per-slot and per-candidate
+    tensors of ``ekf_slam.da_stage``)."""
     from ..models import ekf_slam
 
-    B, M = z.shape[0], z.shape[1]
+    B = z.shape[0]
     L = active.shape[1]
-    dt, dev = Sigma.dtype, Sigma.device
+    dt, dev = z.dtype, z.device
     spec = ekf_slam.FLS if sensor == "fls" else ekf_slam.MBES
     params = ekf_slam.SlamParams(None, None, None, None, None, r_sb, t_sb)
     Q = torch.diag(torch.as_tensor(q_diag, dtype=dt, device=dev)[:spec.dim])
     lam = torch.as_tensor(lam, dtype=dt, device=dev)
     new_lm_cov = torch.as_tensor(new_lm_cov, dtype=dt, device=dev)
 
-    Spp, Spl, Sll = ekf_slam._slabs(Sigma, L)
+    if pose_rows is not None:
+        Spp = pose_rows[:, 0:6, 0:6]
+        Spl = pose_rows[:, 0:6, 6:].reshape(B, 6, L, 3).movedim(-2, -3)
+        Sll = None
+    else:
+        Spp, Spl, Sll = ekf_slam._slabs(Sigma, L)
     if band is not None:
         Sll = torch.stack([band[:, min(a, c) * 8 + abs(c - a), :L]
                            for a in range(3) for c in range(3)], dim=-1
@@ -173,9 +198,24 @@ def da_lanes_reference(
         return ekf_slam._da_core(p6, lm, act, spp, spl, sll, zb, mb, spec,
                                  params, Q, lam, outlier, mh_dist, new_lm_cov)
 
-    cost, (H, S_inv, nu, cand, H_cand, S_inv_cand, nu_cand) = vmap(core)(
-        pose6, lm_pos, active, Spp, Spl, Sll, z, z_mask)
-    ctr = torch.stack([hungarian(cost[b]) for b in range(B)])
+    return vmap(core)(pose6, lm_pos, active, Spp, Spl, Sll, z, z_mask)
+
+
+def da_lanes_reference(
+    pose6, n_active, active, lm_pos, Sigma, z, z_mask, q_diag, lam, outlier,
+    mh_dist, new_lm_cov, sensor="mbes", r_sb=None, t_sb=None, A=None,
+    r_full=None, band=None, pose_rows=None,
+):
+    """Plain PyTorch version of ``da_lanes`` (same arguments and outputs)."""
+    from ..models import ekf_slam
+
+    B, M = z.shape[0], z.shape[1]
+    L = active.shape[1]
+    dev = z.device
+    cost, (H, S_inv, nu, cand, H_cand, S_inv_cand, nu_cand) = da_tables_reference(
+        pose6, n_active, active, lm_pos, Sigma, z, z_mask, q_diag, lam, outlier,
+        mh_dist, new_lm_cov, sensor, r_sb, t_sb, A, r_full, band, pose_rows)
+    ctr = hungarian_lanes_reference(cost)
 
     is_new, r_clip, do, add, slot = ekf_slam.select_updates(ctr, z_mask, n_active, L)
     rc = r_clip.long()
@@ -187,3 +227,36 @@ def da_lanes_reference(
     SinvH = torch.einsum("bmij,bmjk->bmik", Sinv_sel, H_sel)
     # laid out as the kernel writes them
     return tuple(x.contiguous() for x in (ctr, H_sel, SinvH, nu_sel, cand, do, add, slot))
+
+
+def hungarian_lanes(cost: torch.Tensor) -> torch.Tensor:
+    """Exact JV assignment for a fleet: cost (B, R, C) -> col_to_row (B, C)
+    int32, C <= R. Same optimum and tie-breaking as ``assignment.hungarian``
+    per mission; pad unusable entries with ``assignment._INF`` (1e30)."""
+    if cost.dim() != 3:
+        raise ValueError(f"cost: expected (B, R, C), got shape {tuple(cost.shape)}")
+    B, R, C = cost.shape
+    if C > R:
+        raise ValueError("hungarian_lanes requires C <= R (pad candidate rows)")
+    dev = cost.device
+    _tensors.check(cost, "cost", (B, R, C), torch.float32, dev)
+    if dev.type == "cpu":
+        return hungarian_lanes_reference(cost)
+    if dev.type != "cuda":
+        raise ValueError(f"hungarian_lanes runs on CUDA or CPU tensors, not {dev}")
+    out = torch.empty((B, C), dtype=torch.int32, device=dev)
+    rc = _lib("hungarian_lanes_launch", _JV_ARGTYPES)(
+        _tensors.device_index(dev),
+        _tensors.stream(dev), B, R, C, _tensors.ptr(cost), _tensors.ptr(out))
+    _build.check(rc, "hungarian_lanes")
+    hungarian_lanes.launches += 1
+    return out
+
+
+hungarian_lanes.launches = 0
+
+
+def hungarian_lanes_reference(cost: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``hungarian_lanes``: ``assignment.hungarian``
+    per mission."""
+    return torch.stack([hungarian(cost[b]) for b in range(cost.shape[0])])

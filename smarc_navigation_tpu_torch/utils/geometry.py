@@ -105,7 +105,7 @@ class Transform(NamedTuple):
                          trans=-torch.einsum("...ij,...j->...i", rot_t, self.trans))
 
     @staticmethod
-    def identity(dtype=torch.float32, device=None) -> "Transform":
+    def identity(dtype=torch.float32, device="cuda") -> "Transform":
         return Transform(rot=torch.eye(3, dtype=dtype, device=device),
                          trans=torch.zeros(3, dtype=dtype, device=device))
 

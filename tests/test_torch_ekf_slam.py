@@ -40,7 +40,7 @@ POSE_ATOL = 1e-3
 def _port_params():
     tf = Transform(rot=rotmat_from_rpy(torch.tensor(MOUNT[0])),
                    trans=torch.tensor(MOUNT[1]))
-    return S.make_params(CFG, tf_base_fls=tf)
+    return S.make_params(CFG, tf_base_fls=tf, device="cpu")
 
 
 def _raw_mission(seed, params):
@@ -156,21 +156,23 @@ def test_run_fleet_mission_equals_run(case):
 def test_run_fleet_invalid_odometry_is_a_noop():
     """A mission whose odometry has not arrived yet keeps its state exactly
     (identity a8, zero R̃, masked detections)."""
-    params = S.make_params(CFG)
+    params = S.make_params(CFG, device="cpu")
     raw = _raw_mission(3, params)
     ticks = raw["channels"]["odom"][0]
     raw["channels"]["odom"] = (ticks[5:], raw["channels"]["odom"][1][5:])
     tl = fleet.batch_timelines([ptl.build_timeline(**raw)]).to("cpu")
     assert not bool(tl.channels["odom"].valid[0, :5].any())
     final, out = S.run_fleet(tl.map(lambda x: x[:, :5]), params, CFG)
-    s0 = S.init_state(CFG)
+    s0 = S.init_state(CFG, device="cpu")
     assert torch.equal(final.mu[0], s0.mu) and torch.equal(final.Sigma[0], s0.Sigma)
     assert (out["matched_mbes"] == -1).all()
 
 
 def test_unported_modes_raise():
+    """Mission sharding is the one fleet option not ported yet; an unknown
+    covariance mode is refused."""
     tl = fleet.batch_timelines([ptl.build_timeline(**_raw_mission(1, _port_params()))])
-    for kw in ({"update_mode": "marginal"}, {"update_mode": "marginal_dense"},
-               {"device_mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            S.run_fleet(tl.to("cpu"), _port_params(), CFG, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        S.run_fleet(tl.to("cpu"), _port_params(), CFG, device_mesh=object())
+    with pytest.raises(ValueError, match="update_mode"):
+        S.run_fleet(tl.to("cpu"), _port_params(), CFG, update_mode="lowrank")

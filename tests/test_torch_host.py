@@ -132,7 +132,7 @@ def test_predict_and_da_stage_match_jax(J):
                  mu_auv_odom=mu[0:3] - 0.3)
     st = convert.slam_state_from_numpy(state, "cpu")
     jst = J.slam.SlamState(**{k: J.jnp.asarray(v) for k, v in state.items()})
-    params = S.make_params(CFG)
+    params = S.make_params(CFG, device="cpu")
     jparams = J.slam.make_params(CFG)
     assert all(np.allclose(getattr(params, k).numpy(), np.asarray(getattr(jparams, k)))
                for k in S.SlamParams._fields)
@@ -172,6 +172,39 @@ def test_convert_roundtrip(J):
         jstate = J.slam.init_state(CFG, mu0=mu0, beacons=beacons)
         st = convert.slam_state_from_numpy(
             {k: np.asarray(v) for k, v in jstate._asdict().items()}, "cpu")
-        ref = S.init_state(CFG, mu0=mu0, beacons=beacons)
+        ref = S.init_state(CFG, mu0=mu0, beacons=beacons, device="cpu")
         for k in S.SlamState._fields:
             assert torch.equal(getattr(st, k), getattr(ref, k)), (n_beacons, k)
+
+
+def test_slam_host_helpers_match_jax(J):
+    """``slam_timeline`` (bitwise, numpy), ``map_to_odom_correction`` and
+    ``landmarks_map`` against the reference's."""
+    from smarc_navigation_tpu.io import sim as jsim
+    from smarc_navigation_tpu_torch.io import sim
+
+    spec = dict(duration_s=4.0, num_landmarks=6, mbes_std=0.05, landmark_area_m=30.0,
+                mbes_range_m=30.0)
+    m, jm = sim.simulate(sim.MissionSpec(**spec)), jsim.simulate(jsim.MissionSpec(**spec))
+    ticks = np.arange(0, 4.0 + 1e-9, 0.1)
+    odom = m.gt_at(ticks).astype(np.float32)
+    tl = S.slam_timeline(m, odom, ticks, CFG)
+    jtl = J.slam.slam_timeline(jm, odom, ticks, CFG)
+    for a, b in ((tl.ticks, jtl.ticks), (tl.channels["odom"].value, jtl.channels["odom"].value),
+                 (tl.events["mbes"].value, jtl.events["mbes"].value),
+                 (tl.events["mbes"].mask, jtl.events["mbes"].mask)):
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+
+    rng = np.random.default_rng(2)
+    mu_pose = rng.normal(0, 1, 6).astype(np.float32)
+    odom_pose = rng.normal(0, 1, 6).astype(np.float32)
+    got = S.map_to_odom_correction(_t(mu_pose), _t(odom_pose))
+    want = J.slam.map_to_odom_correction(J.jnp.asarray(mu_pose), J.jnp.asarray(odom_pose))
+    np.testing.assert_allclose(got.rot.numpy(), np.asarray(want.rot), atol=1e-6)
+    np.testing.assert_allclose(got.trans.numpy(), np.asarray(want.trans), atol=1e-5)
+
+    st = S.init_state(CFG, beacons=rng.normal(0, 5, (3, 3)), device="cpu")
+    lm, active = S.landmarks_map(st, CFG)
+    jlm, jactive = J.slam.landmarks_map(J.slam.init_state(CFG, beacons=lm[:3].numpy()), CFG)
+    assert np.array_equal(lm.numpy(), np.asarray(jlm))
+    assert np.array_equal(active.numpy(), np.asarray(jactive))

@@ -1,0 +1,82 @@
+"""K11 (``hungarian_lanes``): the fleet's exact assignment against the JAX
+package's ``hungarian_lanes`` (TPU-interpret mode) and against scipy's
+optimum, on random (B, R, C) costs with unusable (1e30) rows and ties.
+
+The assignment is exact: the port's ``col_to_row`` equals JAX's entry for
+entry (same duals, same lowest-row tie rule), and its cost equals scipy's
+optimum. The ``cuda`` test holds the CUDA kernel against its plain version
+on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy.optimize import linear_sum_assignment
+
+from smarc_navigation_tpu_torch.ops import assignment
+from smarc_navigation_tpu_torch.ops import slam_da_kernels as tda
+
+INF = assignment._INF
+
+
+def _costs(seed, B=4, R=12, C=4):
+    """Integer-valued costs (ties), some rows unusable, and the SLAM table's
+    shape: each column has a finite candidate row of its own at the bottom."""
+    rng = np.random.default_rng(seed)
+    cost = rng.integers(0, 6, (B, R, C)).astype(np.float32)
+    for b in range(B):
+        cost[b, rng.choice(R - C, 3, replace=False)] = INF
+        cost[b, R - C:] = INF
+        cost[b, np.arange(R - C, R), np.arange(C)] = 7.0
+    cost[0, :, :] = np.where(cost[0] < INF, 2.0, INF)      # all ties
+    return cost
+
+
+def _optimum(c):
+    r, k = linear_sum_assignment(np.where(c >= INF, 1e9, c.astype(np.float64)))
+    return c[r, k].astype(np.float64).sum()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hungarian_lanes_plain_matches_jax_and_scipy(seed):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from smarc_navigation_tpu.ops.slam_da_kernels import hungarian_lanes as j_hungarian_lanes
+
+    cost = _costs(seed)
+    got = tda.hungarian_lanes(torch.from_numpy(cost))
+    assert got.dtype == torch.int32 and got.shape == (4, 4)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(j_hungarian_lanes(jnp.asarray(cost)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    C = cost.shape[2]
+    for b in range(cost.shape[0]):
+        ctr = got[b].numpy()
+        assert len(set(ctr.tolist())) == C
+        total = cost[b][ctr, np.arange(C)].astype(np.float64).sum()
+        assert total == _optimum(cost[b]), (b, ctr)
+
+
+def test_hungarian_lanes_checks_its_input():
+    with pytest.raises(ValueError, match="C <= R"):
+        tda.hungarian_lanes(torch.zeros(2, 3, 4))
+    with pytest.raises(TypeError, match="dtype"):
+        tda.hungarian_lanes(torch.zeros(2, 5, 4, dtype=torch.float64))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_hungarian_lanes_kernel_matches_plain(cuda):
+    cost = torch.from_numpy(np.concatenate([_costs(s, R=40, C=8) for s in range(4)]))
+    n0 = tda.hungarian_lanes.launches
+    got = tda.hungarian_lanes(cost.to(cuda))
+    torch.cuda.synchronize()
+    assert tda.hungarian_lanes.launches == n0 + 1
+    assert torch.equal(got.cpu(), tda.hungarian_lanes_reference(cost))

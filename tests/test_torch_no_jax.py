@@ -1,6 +1,6 @@
 """The port stands alone: it runs with JAX and flax blocked (the SLAM fleet
-replay, the PF kernel path and the combined mission, at a tiny size on the
-CPU), and its numpy host code (simulator, timeline construction, fleet batching,
+replay in both covariance semantics, the fleet assignment, the PF kernel
+path and the combined mission, at a tiny size on the CPU), and its numpy host code (simulator, timeline construction, fleet batching,
 the PF and combined workloads) produces arrays bitwise equal to the
 reference package's."""
 
@@ -31,15 +31,21 @@ assert torch.backends.cuda.matmul.allow_tf32 is False
 cfg = dataclasses.replace(workloads.combined_slam_cfg(), max_landmarks=16)
 tl = workloads.slam_fleet_timelines(cfg, 0.4, 2).to("cpu")
 assert tl.ticks.shape == (2, 5), tl.ticks.shape
-final, out = ekf_slam.run_fleet(tl, ekf_slam.make_params(cfg), cfg)
+final, out = ekf_slam.run_fleet(tl, ekf_slam.make_params(cfg, device="cpu"), cfg)
 assert out["mu"].shape == (5, 2, 6) and bool(torch.isfinite(final.Sigma).all())
 tl_s, tl_p = workloads.combined_workload(cfg, 3.0)
 pcfg = PFConfig(particle_count=1024)
-fin, pout = pf.run_fast_segmented(tl_p.to("cpu"), pf.make_params(pcfg), pcfg)
+fin, pout = pf.run_fast_segmented(tl_p.to("cpu"), pf.make_params(pcfg, device="cpu"), pcfg)
 assert pout["mean"].shape == (31, 6) and bool(torch.isfinite(fin.particles).all())
-val = fleet.run_combined(tl_s.to("cpu"), tl_p.to("cpu"), ekf_slam.make_params(cfg), cfg,
-                         pf.make_params(pcfg), pcfg, 1024)
+val = fleet.run_combined(tl_s.to("cpu"), tl_p.to("cpu"), ekf_slam.make_params(cfg, device="cpu"), cfg,
+                         pf.make_params(pcfg, device="cpu"), pcfg, 1024)
 assert bool(torch.isfinite(val)), val
+fm, om = ekf_slam.run_fleet(tl, ekf_slam.make_params(cfg, device="cpu"), cfg,
+                            update_mode="marginal")
+assert om["mu"].shape == (5, 2, 6) and bool(torch.isfinite(fm.Sigma).all())
+from smarc_navigation_tpu_torch.ops import slam_da_kernels
+ctr = slam_da_kernels.hungarian_lanes(torch.tensor([[[1.0, 2.0], [0.0, 5.0], [3.0, 0.5]]]))
+assert ctr.tolist() == [[1, 2]], ctr
 loaded = sorted(m for m, v in sys.modules.items() if v is not None and
                 m.split(".")[0] in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"))
 assert not loaded, loaded

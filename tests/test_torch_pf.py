@@ -98,7 +98,7 @@ def test_gps_weights_and_estimate(jx):
     r = np.asarray([[0.6, -0.8, 0], [0.8, 0.6, 0], [0, 0, 1]], np.float32)
     cfg = PFConfig(particle_count=N, measurement_std=1.5)
     jp = JP.make_params(cfg, r_m2o=r, t_m2o=np.asarray([1.0, -2.0, 0.5]))
-    tp = P.make_params(cfg, r_m2o=r, t_m2o=np.asarray([1.0, -2.0, 0.5]))
+    tp = P.make_params(cfg, r_m2o=r, t_m2o=np.asarray([1.0, -2.0, 0.5]), device="cpu")
     parts = _bank(6)
     parts[0, 3] = np.nan                    # a broken particle gets zero weight
     gps = np.asarray([0.7, -1.1], np.float32)
@@ -212,7 +212,7 @@ def test_step_matches_jax_on_one_tick(jx):
 
 def test_sharded_paths_raise():
     tl = P.pf_timeline(sim.simulate(sim.MissionSpec(duration_s=2.0))).to("cpu")
-    tp = P.make_params()
+    tp = P.make_params(device="cpu")
     for fn in (P.run, P.run_fast, P.run_fast_segmented):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(tl, tp, pmesh=object())

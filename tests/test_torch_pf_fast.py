@@ -38,7 +38,7 @@ def test_fast_segmented_matches_fast_exactly_with_noise():
     cfg = PFConfig(particle_count=N, init_cov=(4.0, 4.0, 0.0, 0.0, 0.0, 0.04),
                    motion_cov=(0.01, 0.01, 0.0, 0.0, 0.0, 1e-4),
                    res_noise_cov=(0.04, 0.04, 0.0, 0.0, 0.0, 1e-4))
-    params = P.make_params(cfg)
+    params = P.make_params(cfg, device="cpu")
     f1, o1 = P.run_fast(tl, params, cfg, generator=_gen(42))
     f2, o2 = P.run_fast_segmented(tl, params, cfg, generator=_gen(42), k_max=5)
     assert torch.equal(f1.particles, f2.particles)
@@ -60,7 +60,7 @@ def test_fast_paths_match_dense_scan_deterministic():
     tl, _m = _timeline()
     cfg = PFConfig(particle_count=N, init_cov=(0.0,) * 6, motion_cov=(0.0,) * 6,
                    res_noise_cov=(0.0,) * 6)
-    params = P.make_params(cfg)
+    params = P.make_params(cfg, device="cpu")
     _, dense = P.run(tl, params, cfg, scheme="systematic", use_pallas=False)
     _, fast = P.run_fast(tl, params, cfg)
     _, seg = P.run_fast_segmented(tl, params, cfg, k_max=7)
@@ -75,7 +75,7 @@ def test_gps_updates_contract_the_bank():
     cfg = PFConfig(particle_count=N, init_cov=(25.0, 25.0, 0.0, 0.0, 0.0, 1e-4),
                    motion_cov=(0.0, 0.0, 0.0, 0.0, 0.0, 1e-12),
                    res_noise_cov=(0.04, 0.04, 0.0, 0.0, 0.0, 1e-6))
-    params = P.make_params(cfg)
+    params = P.make_params(cfg, device="cpu")
     gt_end = m.gt_at(np.asarray([float(tl.ticks[-1])]))[0]
     for runner in (lambda t: P.run_fast(t, params, cfg, generator=_gen(0)),
                    lambda t: P.run_fast_segmented(t, params, cfg, generator=_gen(0), k_max=6)):
@@ -100,7 +100,7 @@ def test_update_tick_moments_are_post_resample():
     tl, _m = _timeline()
     cfg = PFConfig(particle_count=N, init_cov=(16.0, 16.0, 0.0, 0.0, 0.0, 1e-4),
                    motion_cov=(0.0,) * 6, res_noise_cov=(0.0,) * 6)
-    params = P.make_params(cfg)
+    params = P.make_params(cfg, device="cpu")
     _, o_fast = P.run_fast(tl, params, cfg, generator=_gen(5))
     _, o_seg = P.run_fast_segmented(tl, params, cfg, generator=_gen(5), k_max=9)
     ts = np.nonzero(o_fast["updated"].numpy())[0]
@@ -128,7 +128,7 @@ def test_run_fast_matches_jax_zero_stds():
     with pltpu.force_tpu_interpret_mode():
         _, jout = JP.run_fast(jtl, JP.make_params(cfg), cfg, key=jax.random.PRNGKey(7))
         jout = {k: np.asarray(v) for k, v in jout.items()}
-    params = P.make_params(cfg)
+    params = P.make_params(cfg, device="cpu")
     for runner in (P.run_fast, P.run_fast_segmented):
         _, out = runner(tl, params, cfg)
         np.testing.assert_allclose(out["mean"].numpy(), jout["mean"], atol=2e-4)

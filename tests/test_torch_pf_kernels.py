@@ -60,7 +60,7 @@ def _mission_par16(motion_cov=(0.0,) * 6, K_=12):
     """par16 rows and seeds of the real PF mission's ticks 0..K-1."""
     tl = P.pf_timeline(sim.simulate(sim.MissionSpec(duration_s=15.0, seed=3,
                                                     gps_surface_z=-100.0))).to("cpu")
-    params = P.make_params(PFConfig(motion_cov=motion_cov))
+    params = P.make_params(PFConfig(motion_cov=motion_cov), device="cpu")
     pre = P._tick_precompute(tl, params, torch.Generator().manual_seed(4))
     return pre.par16[:K_].contiguous(), pre.seeds[:K_].contiguous()
 

@@ -57,7 +57,7 @@ def case():
         jscalar = float(jfleet.run_combined(
             jtls, jtlp, jparams, CFG, JP.make_params(PF_CFG), PF_CFG, 2048,
             key=jax.random.PRNGKey(0)))
-    params = S.make_params(CFG)
+    params = S.make_params(CFG, device="cpu")
     tl = _quiet(workloads.slam_fleet_timelines, CFG, DURATION, 2).to("cpu")
     final_c, out_c = S.run_fleet_compact(tl, params, CFG)
     final_f, out_f = S.run_fleet(tl, params, CFG)
@@ -128,7 +128,7 @@ def test_invalid_odometry_falls_back_to_run_fleet(case):
 def test_run_combined_matches_jax(case):
     tls_np, tlp_np = case["combined"]
     got = fleet.run_combined(tls_np.to("cpu"), tlp_np.to("cpu"), case["params"], CFG,
-                             P.make_params(PF_CFG), PF_CFG, 2048)
+                             P.make_params(PF_CFG, device="cpu"), PF_CFG, 2048)
     assert got.shape == () and bool(torch.isfinite(got))
     np.testing.assert_allclose(float(got), case["jscalar"],
                                rtol=1e-4, atol=1e-4 * abs(case["jscalar"]))

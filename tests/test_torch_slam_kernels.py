@@ -55,10 +55,10 @@ def _close(got, want, rtol=1e-4, atol_scale=1e-5, what=""):
 
 def _params(fls_mount: bool):
     if not fls_mount:
-        return S.make_params(CFG)
+        return S.make_params(CFG, device="cpu")
     tf = Transform(rot=rotmat_from_rpy(torch.tensor([0.0, 0.08, 0.0])),
                    trans=torch.tensor([0.4, 0.0, -0.2]))
-    return S.make_params(CFG, tf_base_fls=tf)
+    return S.make_params(CFG, tf_base_fls=tf, device="cpu")
 
 
 def _fleet_inputs(seed, B, sensor, params, n_act=(5, 9, 0)):
