@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's main paths once on one GPU: the EKF-SLAM
 fleet replay at the headline shape (L=64) and at the reference-tuned L=256
-shape in both covariance semantics, the 2^20-particle PF replay and the
-combined PF + SLAM mission.
+shape in both covariance semantics, the 2^20-particle PF replay, the
+combined PF + SLAM mission, the EKF-localization fleet and the 15-state
+dual-EKF fleet.
 
     python3 chip_smoke.py
 
@@ -57,13 +58,33 @@ Phases (any failure exits nonzero; nothing is caught):
      launched once per segment and K7 once per GPS update; then the per-tick
      path (``segmented=False``), K6 once per tick;
  10. the combined mission ``run_combined`` on ``combined_workload(cfg, 60)``,
-     timed; K1/K2 once per event tick, K5/K7 as in phase 9.
+     timed; K1/K2 once per event tick, K5/K7 as in phase 9;
+ 11. K9 ``fleet_tick`` against its plain version at B=64 and B=512 (N=64 map
+     slots, M=8 detections), on the state of the benchmark's localization
+     fleet at its first tick from T_WARM on that brings detections, and
+     that tick's inputs: matches exact, μ and Σ within tolerance; then the
+     same tick with half the missions out of contact, whose μ and Σ must
+     come back bitwise unchanged;
+ 12. K10 ``fleet15_tick`` against its plain version at B=64 in the local
+     wiring (5 sensors, with GPS) and the global wiring (4 sensors), on the
+     state of the 15-state fleet after T_WARM ticks: x and P within
+     tolerance, P exactly symmetric;
+ 13. the two slices against their plain versions: ``ekf_localization.
+     run_fleet`` and ``ekf_15state.run_dual_fleet`` of 8 distinct missions
+     over 100 ticks on the card (kernels) and on the CPU (plain versions):
+     matches equal, μ, x and map->odom within POSE_TOL;
+ 14. the localization replays: ``loc_fleet_timelines(EKFLocConfig(), 60,
+     64)`` (T=3001 at 50 Hz) and the same fleet tiled to B=512, timed; K9
+     exactly once per tick;
+ 15. the 15-state replays: ``ekf15_fleet_timelines(Ekf15Config(frequency=
+     50), 120, 64)`` (T=6001) through ``run_fleet`` (K10 once per tick) and
+     ``run_dual_fleet`` with ``global_config(50)`` (K10 twice per tick).
 Every kernel's ``ms`` is its device time from ``torch.profiler`` (the
 CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); the
 back-to-back wall time per wrapper call is printed beside it, and
 ``plain_ms`` is the plain version's back-to-back time on the card. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
-5c, 9, 9b and 10) and read just after it (phase 5's after phase 6). K8 has
+5c, 9, 9b, 10, 14 and 15) and read just after it (phase 5's after phase 6). K8 has
 no caller on the single-device path (its TPU callers are the
 particle-sharded update and the TPU's exact-fallback branch) and K11 none
 on any path (the reference calls it from tests only; its JV core runs
@@ -187,6 +208,23 @@ PF_TICK_FLOPS = 50  # float ops of one predict tick of one particle (Box-Muller,
                     # the motion integration, the moment sums); the generator's
                     # integer ops are not counted
 PF_JITTER_FLOPS = 40  # the resample jitter and moment sums per particle
+
+
+def k9_flops(B, N, M):
+    """Float operations of one localization tick from K9's formulas: the
+    predict (R, ∂R, J, the Σ blocks: ~330 per mission), per detection and
+    map slot the model, H, W = HΣ, S, its cofactor inverse, ν, d, the score
+    and gates (~450), per detection the gain and the update of μ and Σ
+    (~1,100). Every slot is evaluated whatever the data."""
+    return B * (330 + M * (N * 450 + 1100))
+
+
+def k10_flops(B, ks):
+    """Float operations of one 15-state tick from K10's formulas: the
+    predict (x', A's blocks, AP, Pn: ~2,500 per mission), then per sensor
+    of k components the k×k Cholesky, 15 triangular solves (30k²), x' and
+    the 120 symmetric downdate entries (480k + 360)."""
+    return B * (2500 + sum(k ** 3 + 30 * k * k + 510 * k + 360 for k in ks))
 
 
 def max_err(got, want, mask=None):
@@ -800,6 +838,246 @@ def slam256_replays(dev, cfg, params, tl, counters):
     return launches
 
 
+LOC_SPEC = dict(num_landmarks=16, dvl_std=0.05, mbes_std=0.05, landmark_area_m=20.0,
+                mbes_range_m=30.0)   # phase 13: a dense field, so most detections associate
+
+
+def loc_tick_args(tl, params, cfg, t):
+    """K9's arguments at tick t of a fleet, from the replay's own staging."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_localization as LOC
+
+    tick_t, z_t, _map4, _par, _lf = LOC.stage_fleet(tl, params, cfg)
+    tk, zz = tick_t[t], z_t[t]
+    return [tk[:, 0:3].contiguous(), tk[:, 3:6].contiguous(), tk[:, 6] > 0.5,
+            zz[..., 0:3].contiguous(), zz[..., 3] > 0.5, params.map_pos, params.map_mask,
+            torch.diagonal(params.Q).contiguous(), torch.diagonal(params.R).contiguous(),
+            params.lambda_m, cfg.epsilon]
+
+
+def loc_kernel_phase(dev, cfg, params, tl64):
+    """Phase 11: K9 against its plain version at B=64 and B=512."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_localization as LOC
+    from smarc_navigation_tpu_torch.ops import loc_kernels as K9
+
+    # the first tick from T_WARM on that brings detections (the MBES bursts
+    # start 12.4 s into the mission), on the state the replay reaches there
+    det_any = tl64.events["mbes_detections"].mask.any(dim=2).any(dim=0)
+    t_k = T_WARM + int(det_any[T_WARM:].nonzero()[0])
+    fin, _ = LOC.run_fleet(tl64.map(lambda x: x[:, :t_k]), params, cfg)
+    args64 = [fin.mu.contiguous(), fin.Sigma.contiguous()] + loc_tick_args(tl64, params, cfg, t_k)
+    res = {}
+    for B in (64, 512):
+        reps = B // 64
+        args = [a.repeat((reps,) + (1,) * (a.dim() - 1)).contiguous() if i < 7 else a
+                for i, a in enumerate(args64)]
+        got = K9.fleet_tick(*args)
+        torch.cuda.synchronize()
+        want = K9.fleet_tick_reference(*args)
+        if not torch.equal(got[2], want[2]):
+            bad = (got[2] != want[2]).nonzero()[:5].tolist()
+            raise AssertionError(f"K9 B={B}: matches differ from the plain version at {bad}")
+        err = max(check(max_err(got[0], want[0]), f"K9 B={B} mu"),
+                  check(max_err(got[1], want[1]), f"K9 B={B} Sigma"))
+        # half the fleet out of contact: those missions keep μ and Σ bit for bit
+        off = args.copy()
+        off[4] = args[4].clone()
+        off[4][::2] = False
+        g_off = K9.fleet_tick(*off)
+        torch.cuda.synchronize()
+        w_off = K9.fleet_tick_reference(*off)
+        if not (torch.equal(g_off[0][::2], args[0][::2]) and torch.equal(g_off[1][::2], args[1][::2])):
+            raise AssertionError(f"K9 B={B}: a mission without contact changed its state")
+        if not torch.equal(g_off[2], w_off[2]):
+            raise AssertionError(f"K9 B={B}: matches differ from the plain version (half off)")
+        err = max(err, check(max_err(g_off[0], w_off[0]), f"K9 B={B} mu (half off)"),
+                  check(max_err(g_off[1], w_off[1]), f"K9 B={B} Sigma (half off)"))
+
+        def k9():
+            return K9.fleet_tick(*args)
+
+        M, N = args[5].shape[1], args[7].shape[0]
+        if not int((got[2] >= 0).sum()) > 0:
+            raise AssertionError(f"K9 B={B}: no detection of tick {t_k} associated")
+        res[B] = dict(err=err, ms=device_ms(k9, 30, "loc_tick_kernel"), wall_ms=wall_ms(k9, 50),
+                      plain_ms=wall_ms(lambda: K9.fleet_tick_reference(*args), 5),
+                      bound=bound(nbytes(*args[:10], *got), k9_flops(B, N, M)),
+                      matched=int((got[2] >= 0).sum()), dets=int(args[6].sum()))
+        v = res[B]
+        print(f"K9 fleet_tick B={B} N={N} M={M} (tick {t_k}): {v['dets']} detections, {v['matched']} matched, "
+              f"max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms per "
+              f"call back to back), plain {v['plain_ms']:.3f} ms, bound {v['bound'][0]:.6f} ms "
+              f"({v['bound'][1]}); half the fleet out of contact: state bitwise kept", flush=True)
+    return res
+
+
+def ekf15_kernel_phase(dev, tl15):
+    """Phase 12: K10 against its plain version, local and global wiring."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_15state as E15
+    from smarc_navigation_tpu_torch.ops import ekf15_kernels as K10
+
+    res = {}
+    for name, cfg in (("local", E15.Ekf15Config(frequency=50.0)),
+                      ("global", E15.global_config(50.0))):
+        (x, P), _ = E15.run_fleet(tl15.map(lambda a: a[:, :T_WARM]), cfg)
+        tick_t, w = K10.stage_ticks15(tl15, cfg)
+        args = (x.contiguous(), P.contiguous(), tick_t[T_WARM], w)
+        got = K10.fleet15_tick(*args)
+        torch.cuda.synchronize()
+        want = K10.fleet15_tick_reference(*args)
+        err = max(check(max_err(got[0], want[0]), f"K10 {name} x"),
+                  check(max_err(got[1], want[1]), f"K10 {name} P"))
+        if not torch.equal(got[1], got[1].transpose(1, 2)):
+            raise AssertionError(f"K10 {name}: P not exactly symmetric")
+
+        def k10():
+            return K10.fleet15_tick(*args)
+
+        B = x.shape[0]
+        ks = [len(ix) for ix in w.sensor_idx]
+        res[name] = dict(err=err, ms=device_ms(k10, 30, "ekf15_kernel"), wall_ms=wall_ms(k10, 50),
+                         plain_ms=wall_ms(lambda: K10.fleet15_tick_reference(*args), 5),
+                         bound=bound(nbytes(*args[:3], *got), k10_flops(B, ks)), ks=ks)
+        v = res[name]
+        print(f"K10 fleet15_tick {name} B={B} sensors k={ks}: max err {v['err']:.3e}, P exactly "
+              f"symmetric; kernel {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms per call back to "
+              f"back), plain {v['plain_ms']:.3f} ms, bound {v['bound'][0]:.6f} ms ({v['bound'][1]})",
+              flush=True)
+    return res
+
+
+def filter_slices_phase(dev):
+    """Phase 13: the localization and 15-state slices, kernels vs plain on
+    8 distinct missions over 100 ticks (the reference tests' stable
+    localization tuning: the launch tuning amplifies every rounding)."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import EKFLocConfig
+    from smarc_navigation_tpu_torch.io import sim
+    from smarc_navigation_tpu_torch.models import ekf_15state as E15
+    from smarc_navigation_tpu_torch.models import ekf_localization as LOC
+    from smarc_navigation_tpu_torch.parallel import fleet as FL
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(EKFLocConfig(), stone_offset=0.0,
+                              r_diag=(1e-4,) * 3 + (1e-6,) * 3, q_diag=(0.25,) * 3)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ms = [sim.simulate(sim.MissionSpec(duration_s=1.98, seed=s, **LOC_SPEC)) for s in range(8)]
+        tl = FL.batch_timelines([LOC.loc_timeline(m, cfg) for m in ms])
+    outs = [LOC.run_fleet(tl.to(d), LOC.make_params(ms[0].landmarks, cfg, device=d), cfg)[1]
+            for d in (dev, "cpu")]
+    if not torch.equal(outs[0]["matches"].cpu(), outs[1]["matches"]):
+        raise AssertionError("loc slice: matches differ between kernel and plain")
+    loc_err = float((outs[0]["mu"].cpu() - outs[1]["mu"]).abs().max())
+    if not loc_err <= POSE_TOL:
+        raise AssertionError(f"loc slice: mu differs by {loc_err:.3e} > {POSE_TOL}")
+    n_match = int((outs[0]["matches"] >= 0).sum())
+
+    cl, cg = E15.Ekf15Config(frequency=50.0), E15.global_config(50.0)
+    tl15 = FL.batch_timelines([E15.ekf15_timeline(sim.simulate(sim.MissionSpec(
+        duration_s=1.98, seed=5 + s)), cl, include_gps=True) for s in range(8)])
+    duals = [E15.run_dual_fleet(tl15.to(d), tl15.to(d), cl, cg) for d in (dev, "cpu")]
+    errs = {name: float((a.cpu() - b).abs().max()) for name, a, b in (
+        ("local x", duals[0][0][1]["x"], duals[1][0][1]["x"]),
+        ("global x", duals[0][1][1]["x"], duals[1][1][1]["x"]),
+        ("map->odom trans", duals[0][2].trans, duals[1][2].trans),
+        ("map->odom rot", duals[0][2].rot, duals[1][2].rot))}
+    for name, e in errs.items():
+        if not e <= POSE_TOL:
+            raise AssertionError(f"ekf15 dual slice: {name} differs by {e:.3e} > {POSE_TOL}")
+    print(f"loc slice B=8 T={outs[0]['mu'].shape[0]}: matches equal ({n_match} matched), max mu "
+          f"err {loc_err:.3e}; ekf15 dual slice B=8 T={duals[0][0][1]['x'].shape[0]}: max err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def filter_replays(dev, cfg, params, tl64, tl15):
+    """Phases 14-15: the localization and 15-state replays; returns their
+    launch counts."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_15state as E15
+    from smarc_navigation_tpu_torch.models import ekf_localization as LOC
+    from smarc_navigation_tpu_torch.ops import ekf15_kernels as K10
+    from smarc_navigation_tpu_torch.ops import loc_kernels as K9
+
+    launches = {}
+    LOC.run_fleet(tl64.map(lambda x: x[:, :20]), params, cfg)                    # warm-up
+    for B in (64, 512):
+        tl = tl64 if B == 64 else tl64.map(lambda x: x.repeat((B // 64,) + (1,) * (x.dim() - 1)))
+        T = tl.ticks.shape[1]
+        K9.fleet_tick.launches = 0
+        (final, out), ms, wall = timed(lambda: LOC.run_fleet(tl, params, cfg))
+        launches[f"loc{B}"] = K9.fleet_tick.launches
+        if K9.fleet_tick.launches != T:
+            raise AssertionError(f"loc replay B={B}: {K9.fleet_tick.launches} K9 launches for {T} ticks")
+        for name, x in (("mu", out["mu"]), ("sigma_diag", out["sigma_diag"]), ("Sigma", final.Sigma)):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"loc replay B={B}: non-finite {name}")
+        n_match = int(out["num_matched"].sum())
+        if not n_match > 0:
+            raise AssertionError(f"loc replay B={B}: no detection associated")
+        steps = B * T / (ms / 1e3)
+        print(f"loc replay B={B} T={T} N={params.map_pos.shape[0]} M={cfg.max_obs}: {ms:.1f} ms on the "
+              f"card ({wall:.3f} s host), {ms * 1e3 / T:.1f} us/fleet tick, {steps:.0f} steps/s = "
+              f"{steps / cfg.system_freq:.0f}x the {cfg.system_freq:.0f} Hz node; {n_match} "
+              f"associations; launches {launches[f'loc{B}']}", flush=True)
+
+    cl, cg = E15.Ekf15Config(frequency=50.0), E15.global_config(50.0)
+    B, T = tl15.ticks.shape
+    E15.run_fleet(tl15.map(lambda x: x[:, :20]), cl)                            # warm-up
+    K10.fleet15_tick.launches = 0
+    ((x, P), out), ms, wall = timed(lambda: E15.run_fleet(tl15, cl))
+    launches["ekf15"] = K10.fleet15_tick.launches
+    if launches["ekf15"] != T:
+        raise AssertionError(f"ekf15 replay: {launches['ekf15']} K10 launches for {T} ticks")
+    if not (bool(torch.isfinite(out["x"]).all()) and bool(torch.isfinite(P).all())):
+        raise AssertionError("ekf15 replay: non-finite state")
+    print(f"ekf15 replay (local) B={B} T={T}: {ms:.1f} ms on the card ({wall:.3f} s host), "
+          f"{ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; launches "
+          f"{launches['ekf15']}", flush=True)
+    K10.fleet15_tick.launches = 0
+    (_l, _g, mo), ms_d, wall_d = timed(lambda: E15.run_dual_fleet(tl15, tl15, cl, cg))
+    launches["ekf15_dual"] = K10.fleet15_tick.launches
+    if launches["ekf15_dual"] != 2 * T:
+        raise AssertionError(f"ekf15 dual replay: {launches['ekf15_dual']} K10 launches for {T} ticks")
+    if not (bool(torch.isfinite(mo.trans).all()) and bool(torch.isfinite(mo.rot).all())):
+        raise AssertionError("ekf15 dual replay: non-finite map->odom")
+    print(f"ekf15 dual replay B={B} T={T}: {ms_d:.1f} ms on the card ({wall_d:.3f} s host), "
+          f"{ms_d * 1e3 / T:.1f} us/fleet tick, {B * T / (ms_d / 1e3):.0f} dual pairs/s; final "
+          f"map->odom |t| max {float(mo.trans[-1].norm(dim=-1).max()):.3f} m; launches "
+          f"{launches['ekf15_dual']}", flush=True)
+    return launches
+
+
+def filter_fleets(dev):
+    """Phases 11-15; returns (K9 results, K10 results, launch counts)."""
+    from smarc_navigation_tpu_torch.configs import EKFLocConfig
+    from smarc_navigation_tpu_torch.io.workloads import ekf15_fleet_timelines, loc_fleet_timelines
+    from smarc_navigation_tpu_torch.models import ekf_15state as E15
+    from smarc_navigation_tpu_torch.models import ekf_localization as LOC
+
+    cfg = EKFLocConfig()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tl64_np, landmarks = loc_fleet_timelines(cfg, 60.0, 64)
+    tl64 = tl64_np.to(dev)
+    params = LOC.make_params(landmarks, cfg, device=dev)
+    tl15 = ekf15_fleet_timelines(E15.Ekf15Config(frequency=50.0), 120.0, 64).to(dev)
+    print(f"localization fleet: B=64 T={tl64.ticks.shape[1]} N={cfg.max_landmarks} M={cfg.max_obs}; "
+          f"15-state fleet: B=64 T={tl15.ticks.shape[1]}", flush=True)
+    k9 = loc_kernel_phase(dev, cfg, params, tl64)
+    k10 = ekf15_kernel_phase(dev, tl15)
+    filter_slices_phase(dev)
+    return k9, k10, filter_replays(dev, cfg, params, tl64, tl15)
+
+
 def main():
     import torch
 
@@ -1023,6 +1301,9 @@ def main():
     # --- 7-10. the PF kernels, slice, headline and the combined mission ------
     pk, pf_launch, pt_launch = pf_main_paths(dev, cfg, params, counters)
 
+    # --- 11-15. the localization and 15-state fleets ----------------------------
+    k9, k10, fl_launch = filter_fleets(dev)
+
     def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None):
         return dict(name=name, route="cuda", source=f"smarc_navigation_tpu_torch/csrc/{source}",
                     replaces=f"smarc_navigation_tpu/ops/{replaces}", launches=n,
@@ -1054,6 +1335,13 @@ def main():
         entry("symmetric_downdate", "slam_downdate.cu", "slam_kernels.py:807",
               l256["full"]["symmetric_downdate"], k256["K12"]["err"], k256["K12"]["ms"],
               k256["K12"]["plain_ms"], k256["K12"]["bound"], k256["K12"]["library_ms"]),
+        # K9 at the loc-fleet64 replay's shape; K10 in the local wiring of
+        # the ekf15-fleet64 replay (its dual replay launches it 2T times)
+        entry("fleet_tick", "loc_tick.cu", "loc_kernels.py:326", fl_launch["loc64"],
+              max(v["err"] for v in k9.values()), k9[64]["ms"], k9[64]["plain_ms"], k9[64]["bound"]),
+        entry("fleet15_tick", "ekf15_tick.cu", "ekf15_kernels.py:264", fl_launch["ekf15"],
+              max(v["err"] for v in k10.values()), k10["local"]["ms"], k10["local"]["plain_ms"],
+              k10["local"]["bound"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

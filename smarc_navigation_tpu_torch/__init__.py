@@ -10,16 +10,22 @@ and the single-mission ``step``/``run``; slice 2 the particle filter
 (``models.particle_filter``: dense path and the kernel paths
 ``run_fast_segmented``/``run_fast``), the event-compacted SLAM replay
 ``run_fleet_compact`` and the combined mission ``parallel.fleet.run_combined``.
-Their seven kernels are hand-written CUDA C++ for Hopper (``csrc/``), built
-at first use by ``_build.py``.
+Slice 3 adds the L=256 SLAM fleet in both covariance semantics (K4, K11,
+K12); slice 4 the EKF-localization fleet (``models.ekf_localization``, K9)
+and the 15-state dual-EKF fleet (``models.ekf_15state``, K10). All twelve
+kernels are hand-written CUDA C++ for Hopper (``csrc/``), built at first use
+by ``_build.py``.
 
 Layout (same paths as the reference):
   utils/     geometry, linalg
-  io/        numpy mission simulator, the headline and combined workloads
-  ops/       timeline, assignment, resampling, slam_da_kernels (K1),
-             slam_kernels (K2/K3), pf_kernels (K5-K8)
+  io/        numpy mission simulator, the SLAM, combined, localization and
+             15-state fleet workloads
+  ops/       timeline, assignment, bezier, resampling, slam_da_kernels (K1,
+             K11), slam_kernels (K2-K4, K12), pf_kernels (K5-K8),
+             loc_kernels (K9), ekf15_kernels (K10)
   parallel/  fleet.batch_timelines, fleet.run_combined
-  models/    ekf_slam, particle_filter
+  models/    ekf_slam, particle_filter, ekf_localization, ekf_15state,
+             motion_model
 """
 
 import torch as _torch

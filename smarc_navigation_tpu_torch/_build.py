@@ -28,12 +28,14 @@ BUILD = PKG / "build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-library extra flags: the DA kernel's gate/cost arithmetic and the PF
-# kernels' motion, jitter and generator arithmetic round every product (no
-# FMA contraction), like the plain PyTorch versions' elementwise ops
+# per-library extra flags: the DA kernel's gate/cost arithmetic, the PF
+# kernels' motion, jitter and generator arithmetic and the two filter tick
+# kernels round every product (no FMA contraction), like the plain PyTorch
+# versions' elementwise ops
 EXTRA_FLAGS = {"slam_da": ["-fmad=false"], "slam_update": [], "slam_downdate": [],
                "slam_marginal": [], "pf_predict": ["-fmad=false"],
-               "pf_resample": ["-fmad=false"]}
+               "pf_resample": ["-fmad=false"], "loc_tick": ["-fmad=false"],
+               "ekf15_tick": ["-fmad=false"]}
 
 _libs: dict = {}
 

@@ -8,13 +8,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models.ekf_15state import Ekf15State
+from .models.ekf_localization import EKFLocParams, EKFLocState
 from .models.ekf_slam import MarginalFleetState, SlamParams, SlamState
 from .models.particle_filter import PFParams, PFState
 from .ops.timeline import timeline_from_numpy
 
 __all__ = ["slam_params_from_numpy", "slam_state_from_numpy",
            "marginal_state_from_numpy", "timeline_from_numpy",
-           "pf_params_from_numpy", "pf_state_from_numpy"]
+           "pf_params_from_numpy", "pf_state_from_numpy",
+           "loc_params_from_numpy", "loc_state_from_numpy", "ekf15_state_from_numpy"]
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -56,3 +59,21 @@ def pf_state_from_numpy(d: dict, device, generator: torch.Generator | None = Non
     g = generator if generator is not None else torch.Generator(device=device).manual_seed(0)
     return PFState(particles=_tensor(d["particles"], device).to(torch.float32),
                    generator=g, t_prev=_tensor(d["t_prev"], device).to(torch.float32))
+
+
+def loc_params_from_numpy(d: dict, device) -> EKFLocParams:
+    """EKFLocParams from a dict of numpy arrays keyed by field name; the
+    floats become float32 and map_mask bool, as ``make_params`` makes them."""
+    kw = {k: _tensor(d[k], device).to(torch.float32) for k in EKFLocParams._fields}
+    kw["map_mask"] = kw["map_mask"].to(torch.bool)
+    return EKFLocParams(**kw)
+
+
+def loc_state_from_numpy(d: dict, device) -> EKFLocState:
+    """EKFLocState (single or batched) from a dict of numpy arrays."""
+    return EKFLocState(**{k: _tensor(d[k], device).to(torch.float32) for k in EKFLocState._fields})
+
+
+def ekf15_state_from_numpy(d: dict, device) -> Ekf15State:
+    """Ekf15State (single or batched) from a dict of numpy arrays."""
+    return Ekf15State(**{k: _tensor(d[k], device).to(torch.float32) for k in Ekf15State._fields})

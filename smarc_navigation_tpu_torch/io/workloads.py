@@ -1,7 +1,8 @@
 """Headline workload builders (numpy; port of the reference's
 ``io/workloads.py``): the SLAM missions at the 10 Hz ``ekf_slam.launch``
-tick with simulated MBES detections that the fleet replay is timed on, and
-the combined PF + SLAM mission."""
+tick with simulated MBES detections that the fleet replay is timed on, the
+combined PF + SLAM mission, and the localization and 15-state EKF fleets
+of the reference's benchmark (``bench.py`` sections 5 and 8)."""
 
 from __future__ import annotations
 
@@ -9,7 +10,7 @@ import dataclasses
 
 import numpy as np
 
-from ..configs import EKFSlamConfig
+from ..configs import EKFLocConfig, EKFSlamConfig
 
 
 def combined_slam_cfg() -> EKFSlamConfig:
@@ -87,3 +88,28 @@ def combined_workload(slam_cfg: EKFSlamConfig, duration: float, pf_seed: int = 3
         sim.MissionSpec(duration_s=duration, seed=pf_seed, gps_surface_z=-100.0)
     )
     return tl_slam, pf.pf_timeline(m, freq_hz=10.0)
+
+
+def loc_fleet_timelines(cfg: EKFLocConfig, duration: float, B: int):
+    """The benchmark's EKF-localization fleet (``bench.py:570-576``): one
+    simulated mission (16 landmarks, DVL and MBES noise 0.05, seed 7) tiled
+    to B -> (batched numpy Timeline, the mission's landmarks for
+    ``ekf_localization.make_params``)."""
+    from ..io import sim
+    from ..models import ekf_localization as loc
+    from ..parallel import fleet
+
+    m = sim.simulate(sim.MissionSpec(duration_s=duration, num_landmarks=16, dvl_std=0.05,
+                                     mbes_std=0.05, seed=7))
+    return fleet.batch_timelines([loc.loc_timeline(m, cfg)] * B), m.landmarks
+
+
+def ekf15_fleet_timelines(cfg, duration: float, B: int, include_gps: bool = True):
+    """The benchmark's 15-state EKF fleet (``bench.py:692-694``): one
+    simulated mission (seed 5) through ``ekf15_timeline`` tiled to B."""
+    from ..io import sim
+    from ..models import ekf_15state as e15
+    from ..parallel import fleet
+
+    m = sim.simulate(sim.MissionSpec(duration_s=duration, seed=5))
+    return fleet.batch_timelines([e15.ekf15_timeline(m, cfg, include_gps=include_gps)] * B)

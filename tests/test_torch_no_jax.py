@@ -1,8 +1,11 @@
 """The port stands alone: it runs with JAX and flax blocked (the SLAM fleet
 replay in both covariance semantics, the fleet assignment, the PF kernel
-path and the combined mission, at a tiny size on the CPU), and its numpy host code (simulator, timeline construction, fleet batching,
-the PF and combined workloads) produces arrays bitwise equal to the
-reference package's."""
+path, the combined mission, the EKF-localization fleet and the 15-state
+dual-EKF fleet, at a tiny size on the CPU), and its numpy host code
+(simulator, timeline construction, fleet batching, the PF, combined,
+localization and 15-state workloads) produces arrays bitwise equal to the
+reference package's (the 15-state timeline's attitude and control columns,
+computed in float32 by each framework, to 1e-6)."""
 
 import dataclasses
 import os
@@ -46,6 +49,21 @@ assert om["mu"].shape == (5, 2, 6) and bool(torch.isfinite(fm.Sigma).all())
 from smarc_navigation_tpu_torch.ops import slam_da_kernels
 ctr = slam_da_kernels.hungarian_lanes(torch.tensor([[[1.0, 2.0], [0.0, 5.0], [3.0, 0.5]]]))
 assert ctr.tolist() == [[1, 2]], ctr
+from smarc_navigation_tpu_torch.configs import EKFLocConfig
+from smarc_navigation_tpu_torch.models import ekf_15state, ekf_localization
+import warnings
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore")
+    ltl, lms = workloads.loc_fleet_timelines(EKFLocConfig(), 0.3, 2)
+lcfg = EKFLocConfig()
+lf, lo = ekf_localization.run_fleet(ltl.to("cpu"), ekf_localization.make_params(lms, lcfg, device="cpu"), lcfg)
+assert lo["mu"].shape == (16, 2, 6) and lo["matches"].shape == (16, 2, 8)
+assert bool(torch.isfinite(lf.Sigma).all())
+ecfg = ekf_15state.Ekf15Config(frequency=50.0)
+etl = workloads.ekf15_fleet_timelines(ecfg, 0.3, 2).to("cpu")
+(_, el), (_, eg), mo = ekf_15state.run_dual_fleet(etl, etl, ecfg)
+assert el["x"].shape == (16, 2, 15) and mo.trans.shape == (16, 2, 3)
+assert bool(torch.isfinite(mo.trans).all() and torch.isfinite(eg["p_diag"]).all())
 loaded = sorted(m for m, v in sys.modules.items() if v is not None and
                 m.split(".")[0] in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"))
 assert not loaded, loaded
@@ -105,6 +123,48 @@ def test_host_code_bitwise_equal_to_reference(seed):
     for a, b in zip(workloads.combined_workload(cfg, 12.0, pf_seed=seed),
                     jworkloads.combined_workload(cfg, 12.0, pf_seed=seed)):
         _assert_bitwise(_flat(a), _flat(b))
+
+
+def test_filter_fleet_builders_match_reference():
+    """The localization and 15-state fleet builders against the same
+    missions built by the reference package (as ``bench.py`` builds them)."""
+    import warnings
+
+    from smarc_navigation_tpu.configs import EKFLocConfig as JLocConfig
+    from smarc_navigation_tpu.io import sim as jsim
+    from smarc_navigation_tpu.models import ekf_15state as j15
+    from smarc_navigation_tpu.models import ekf_localization as jloc
+    from smarc_navigation_tpu.parallel import fleet as jfleet
+    from smarc_navigation_tpu_torch.configs import EKFLocConfig
+    from smarc_navigation_tpu_torch.io import sim, workloads
+    from smarc_navigation_tpu_torch.models import ekf_15state, ekf_localization
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tl, lms = workloads.loc_fleet_timelines(EKFLocConfig(), 8.0, 3)
+        jm = jsim.simulate(jsim.MissionSpec(duration_s=8.0, num_landmarks=16, dvl_std=0.05,
+                                            mbes_std=0.05, seed=7))
+        jtl = jfleet.batch_timelines([jloc.loc_timeline(jm, JLocConfig())] * 3)
+        m = sim.simulate(sim.MissionSpec(duration_s=8.0, num_landmarks=20, mbes_std=0.05,
+                                         seed=2))
+        one, jone = (ekf_localization.loc_timeline(m, EKFLocConfig()),
+                     jloc.loc_timeline(jsim.simulate(jsim.MissionSpec(
+                         duration_s=8.0, num_landmarks=20, mbes_std=0.05, seed=2)),
+                         JLocConfig()))
+    _assert_bitwise(_flat(tl), _flat(jtl))
+    assert np.array_equal(lms, jm.landmarks)
+    _assert_bitwise(_flat(one), _flat(jone))
+
+    cfg = ekf_15state.Ekf15Config(frequency=50.0)
+    got = _flat(workloads.ekf15_fleet_timelines(cfg, 6.0, 3))
+    jm15 = jsim.simulate(jsim.MissionSpec(duration_s=6.0, seed=5))
+    want = _flat(jfleet.batch_timelines(
+        [j15.ekf15_timeline(jm15, j15.Ekf15Config(frequency=50.0), include_gps=True)] * 3))
+    float32_cols = ("channels.sbg.value", "channels.stim.value", "channels.cmd_vel.value")
+    _assert_bitwise({k: v for k, v in got.items() if k not in float32_cols},
+                    {k: v for k, v in want.items() if k not in float32_cols})
+    for k in float32_cols:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=k)
 
 
 def test_batch_timelines_checks_every_timeline():
