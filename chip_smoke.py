@@ -64,21 +64,26 @@ Phases (any failure exits nonzero; nothing is caught):
      fleet at its first tick from T_WARM on that brings detections, and
      that tick's inputs: matches exact, μ and Σ within tolerance; then the
      same tick with half the missions out of contact, whose μ and Σ must
-     come back bitwise unchanged;
+     come back bitwise unchanged (K9 runs one block per mission and skips
+     the rounds of invalid detections);
  12. K10 ``fleet15_tick`` against its plain version at B=64 in the local
      wiring (5 sensors, with GPS) and the global wiring (4 sensors), on the
      state of the 15-state fleet after T_WARM ticks: x and P within
-     tolerance, P exactly symmetric;
+     tolerance, P exactly symmetric (K10 runs one block per mission and
+     skips the sensors whose apply flag is off);
  13. the two slices against their plain versions: ``ekf_localization.
      run_fleet`` and ``ekf_15state.run_dual_fleet`` of 8 distinct missions
      over 100 ticks on the card (kernels) and on the CPU (plain versions):
      matches equal, μ, x and map->odom within POSE_TOL;
  14. the localization replays: ``loc_fleet_timelines(EKFLocConfig(), 60,
      64)`` (T=3001 at 50 Hz) and the same fleet tiled to B=512, timed; K9
-     exactly once per tick;
+     exactly once per tick; then each replay once more under torch.profiler:
+     K9's mean device µs per launch over the replay and its share of the
+     timed replay (µs × launches / replay time);
  15. the 15-state replays: ``ekf15_fleet_timelines(Ekf15Config(frequency=
      50), 120, 64)`` (T=6001) through ``run_fleet`` (K10 once per tick) and
-     ``run_dual_fleet`` with ``global_config(50)`` (K10 twice per tick).
+     ``run_dual_fleet`` with ``global_config(50)`` (K10 twice per tick);
+     then K10's mean device µs per launch over each and its share, as in 14.
 Every kernel's ``ms`` is its device time from ``torch.profiler`` (the
 CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); the
 back-to-back wall time per wrapper call is printed beside it, and
@@ -91,7 +96,8 @@ on any path (the reference calls it from tests only; its JV core runs
 inside K1), so their counts are 0. ``bound_ms`` is the larger of the bytes
 each kernel must move (inputs read once, outputs written once) over
 3.35 TB/s and its float operations over 67 TFLOP/s (H100 SXM data sheet),
-computed from this run's inputs. The second-to-last line is a JSON object
+computed from this run's inputs (K9's only for the valid detections of the
+missions whose tick runs, K10's only for the applied sensors). The second-to-last line is a JSON object
 with each kernel's launches, error, times and bound; the last line is the
 device JSON.
 """
@@ -143,14 +149,13 @@ def wall_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def device_ms(fn, n, kernel):
-    """Mean device time (ms) of the CUDA kernel whose name contains
-    ``kernel`` over n calls of fn(), from torch.profiler's CUPTI trace
-    (after one warm-up), averaged over the launches the trace recorded."""
+def kernel_us(fn, n, kernel, launches):
+    """(mean device µs per launch, launches recorded) of the CUDA kernel
+    whose name contains ``kernel`` over n calls of fn() that launch it
+    ``launches`` times in all, from torch.profiler's CUPTI trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -161,9 +166,17 @@ def device_ms(fn, n, kernel):
         if kernel in e.key and e.self_device_time_total > 0:
             total_us += e.self_device_time_total
             count += e.count
-    if not 1 <= count <= n:   # the trace may drop a record; it never invents one
-        raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {n}")
-    return total_us / count / 1e3
+    if not 1 <= count <= launches:   # the trace may drop a record; it never invents one
+        raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {launches}")
+    return total_us / count, count
+
+
+def device_ms(fn, n, kernel):
+    """Mean device time (ms) of the CUDA kernel whose name contains
+    ``kernel`` over n calls of fn() (after one warm-up), averaged over the
+    launches the trace recorded."""
+    fn()
+    return kernel_us(fn, n, kernel, n)[0] / 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -210,21 +223,36 @@ PF_TICK_FLOPS = 50  # float ops of one predict tick of one particle (Box-Muller,
 PF_JITTER_FLOPS = 40  # the resample jitter and moment sums per particle
 
 
-def k9_flops(B, N, M):
-    """Float operations of one localization tick from K9's formulas: the
-    predict (R, ∂R, J, the Σ blocks: ~330 per mission), per detection and
-    map slot the model, H, W = HΣ, S, its cofactor inverse, ν, d, the score
-    and gates (~450), per detection the gain and the update of μ and Σ
-    (~1,100). Every slot is evaluated whatever the data."""
-    return B * (330 + M * (N * 450 + 1100))
+def k9_flops(have, z_valid, N):
+    """Float operations one localization tick needs on these inputs, from
+    K9's formulas: the predict (R, ∂R, J, the Σ blocks: ~330 per mission),
+    per valid detection and map slot the model, H, W = HΣ, S, its cofactor
+    inverse, ν, d, the score and gates (~450), per valid detection the gain
+    and the update of μ and Σ (~1,100). An invalid detection changes nothing
+    and a mission without contact keeps its input state (its rounds run only
+    for the matches of its valid detections), so neither is counted."""
+    run = have | z_valid.any(dim=1)
+    n_valid = int((z_valid & run[:, None]).sum())
+    return int(run.sum()) * 330 + n_valid * (N * 450 + 1100)
 
 
-def k10_flops(B, ks):
-    """Float operations of one 15-state tick from K10's formulas: the
-    predict (x', A's blocks, AP, Pn: ~2,500 per mission), then per sensor
-    of k components the k×k Cholesky, 15 triangular solves (30k²), x' and
-    the 120 symmetric downdate entries (480k + 360)."""
-    return B * (2500 + sum(k ** 3 + 30 * k * k + 510 * k + 360 for k in ks))
+def applied_sensors(tick, w):
+    """(k, missions applying it) for each sensor of a K10 tick row."""
+    out, row = [], 4
+    for ix in w.sensor_idx:
+        out.append((len(ix), int((tick[:, row + len(ix)] > 0.5).sum())))
+        row += len(ix) + 1
+    return out
+
+
+def k10_flops(tick, w):
+    """Float operations one 15-state tick needs on these inputs, from K10's
+    formulas: the predict (x', A's blocks, AP, Pn: ~2,500 per mission), then
+    per applied sensor of k components the k×k Cholesky, 15 triangular
+    solves (30k²), x' and the 120 symmetric downdate entries (480k + 360).
+    A sensor whose apply flag is off changes nothing and is not counted."""
+    return 2500 * tick.shape[0] + sum(n * (k ** 3 + 30 * k * k + 510 * k + 360)
+                                      for k, n in applied_sensors(tick, w))
 
 
 def max_err(got, want, mask=None):
@@ -904,7 +932,7 @@ def loc_kernel_phase(dev, cfg, params, tl64):
             raise AssertionError(f"K9 B={B}: no detection of tick {t_k} associated")
         res[B] = dict(err=err, ms=device_ms(k9, 30, "loc_tick_kernel"), wall_ms=wall_ms(k9, 50),
                       plain_ms=wall_ms(lambda: K9.fleet_tick_reference(*args), 5),
-                      bound=bound(nbytes(*args[:10], *got), k9_flops(B, N, M)),
+                      bound=bound(nbytes(*args[:10], *got), k9_flops(args[4], args[6], N)),
                       matched=int((got[2] >= 0).sum()), dets=int(args[6].sum()))
         v = res[B]
         print(f"K9 fleet_tick B={B} N={N} M={M} (tick {t_k}): {v['dets']} detections, {v['matched']} matched, "
@@ -942,13 +970,26 @@ def ekf15_kernel_phase(dev, tl15):
         ks = [len(ix) for ix in w.sensor_idx]
         res[name] = dict(err=err, ms=device_ms(k10, 30, "ekf15_kernel"), wall_ms=wall_ms(k10, 50),
                          plain_ms=wall_ms(lambda: K10.fleet15_tick_reference(*args), 5),
-                         bound=bound(nbytes(*args[:3], *got), k10_flops(B, ks)), ks=ks)
+                         bound=bound(nbytes(*args[:3], *got), k10_flops(args[2], w)), ks=ks,
+                         applied=sum(n for _, n in applied_sensors(args[2], w)))
         v = res[name]
-        print(f"K10 fleet15_tick {name} B={B} sensors k={ks}: max err {v['err']:.3e}, P exactly "
+        print(f"K10 fleet15_tick {name} B={B} sensors k={ks} (applied {v['applied']} of "
+              f"{B * len(ks)}): max err {v['err']:.3e}, P exactly "
               f"symmetric; kernel {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms per call back to "
               f"back), plain {v['plain_ms']:.3f} ms, bound {v['bound'][0]:.6f} ms ({v['bound'][1]})",
               flush=True)
     return res
+
+
+def replay_share(fn, kernel, launches, replay_ms, what):
+    """Print the kernel's mean device µs per launch over one more call of
+    fn() (the replay) and its share of the timed replay (µs × launches /
+    replay time)."""
+    us, seen = kernel_us(fn, 1, kernel, launches)
+    share = us * launches / (replay_ms * 1e3)
+    print(f"{what}: {kernel} {us:.3f} us device per launch over the replay ({seen} of "
+          f"{launches} launches traced); x {launches} launches = {100 * share:.1f} % of the "
+          f"replay's {replay_ms:.1f} ms", flush=True)
 
 
 def filter_slices_phase(dev):
@@ -998,8 +1039,8 @@ def filter_slices_phase(dev):
 
 
 def filter_replays(dev, cfg, params, tl64, tl15):
-    """Phases 14-15: the localization and 15-state replays; returns their
-    launch counts."""
+    """Phases 14-15: the localization and 15-state replays, then each
+    kernel's device time over each replay; returns their launch counts."""
     import torch
 
     from smarc_navigation_tpu_torch.models import ekf_15state as E15
@@ -1028,6 +1069,8 @@ def filter_replays(dev, cfg, params, tl64, tl15):
               f"card ({wall:.3f} s host), {ms * 1e3 / T:.1f} us/fleet tick, {steps:.0f} steps/s = "
               f"{steps / cfg.system_freq:.0f}x the {cfg.system_freq:.0f} Hz node; {n_match} "
               f"associations; launches {launches[f'loc{B}']}", flush=True)
+        replay_share(lambda: LOC.run_fleet(tl, params, cfg), "loc_tick_kernel", T, ms,
+                     f"loc replay B={B}")
 
     cl, cg = E15.Ekf15Config(frequency=50.0), E15.global_config(50.0)
     B, T = tl15.ticks.shape
@@ -1042,6 +1085,7 @@ def filter_replays(dev, cfg, params, tl64, tl15):
     print(f"ekf15 replay (local) B={B} T={T}: {ms:.1f} ms on the card ({wall:.3f} s host), "
           f"{ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; launches "
           f"{launches['ekf15']}", flush=True)
+    replay_share(lambda: E15.run_fleet(tl15, cl), "ekf15_kernel", T, ms, "ekf15 replay (local)")
     K10.fleet15_tick.launches = 0
     (_l, _g, mo), ms_d, wall_d = timed(lambda: E15.run_dual_fleet(tl15, tl15, cl, cg))
     launches["ekf15_dual"] = K10.fleet15_tick.launches
@@ -1053,6 +1097,8 @@ def filter_replays(dev, cfg, params, tl64, tl15):
           f"{ms_d * 1e3 / T:.1f} us/fleet tick, {B * T / (ms_d / 1e3):.0f} dual pairs/s; final "
           f"map->odom |t| max {float(mo.trans[-1].norm(dim=-1).max()):.3f} m; launches "
           f"{launches['ekf15_dual']}", flush=True)
+    replay_share(lambda: E15.run_dual_fleet(tl15, tl15, cl, cg), "ekf15_kernel", 2 * T, ms_d,
+                 "ekf15 dual replay")
     return launches
 
 

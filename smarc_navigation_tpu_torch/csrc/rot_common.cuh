@@ -14,10 +14,9 @@ struct Trig {
   float dR[3][3][3];  // [k][i][j] = ∂R[i][j]/∂rpy_k
 };
 
-__device__ inline void rot_entries(float r, float p, float y, Trig& t) {
-  const float sr = sinf(r), cr = cosf(r);
-  const float sp = sinf(p), cp = cosf(p);
-  const float sy = sinf(y), cy = cosf(y);
+// the entries from the sines and cosines of roll, pitch and yaw
+__device__ inline void rot_entries(float sr, float cr, float sp, float cp, float sy, float cy,
+                                   Trig& t) {
   const float zero = sr * 0.0f;
   t.R[0][0] = cy * cp;
   t.R[0][1] = cy * sp * sr - sy * cr;
@@ -58,6 +57,17 @@ __device__ inline void rot_entries(float r, float p, float y, Trig& t) {
   t.dR[2][2][0] = zero;
   t.dR[2][2][1] = zero;
   t.dR[2][2][2] = zero;
+}
+
+// Called by all 32 lanes of a warp, lane i < 3 holding angle a of roll,
+// pitch and yaw (i): the three sines and cosines at once, one per lane,
+// returned to every lane as (sr, cr, sp, cp, sy, cy).
+__device__ inline void warp_sincos3(float a, float sc[6]) {
+  const float s = sinf(a), c = cosf(a);
+  for (int i = 0; i < 3; ++i) {
+    sc[2 * i] = __shfl_sync(0xffffffffu, s, i);
+    sc[2 * i + 1] = __shfl_sync(0xffffffffu, c, i);
+  }
 }
 
 }  // namespace slam

@@ -382,10 +382,14 @@ def da_commit(
     (``ekf_slam_core.cpp:351-371``): each update writes back only the 9×9
     (pose, matched landmark) marginal and leaves the other
     cross-covariances as they are (the reference's ``upd2``); ``"auto"`` —
-    ``"kernel"`` for CUDA state, ``"full"`` elsewhere."""
+    ``"kernel"`` for CUDA state, ``"full"`` elsewhere; ``"pallas"`` — the
+    reference's name of ``"kernel"``. An unknown mode raises (the reference
+    runs it as ``"full"``)."""
     L = cfg.max_landmarks
     if update_mode == "auto":
         update_mode = "kernel" if state.mu.is_cuda else "full"
+    if update_mode == "pallas":
+        update_mode = "kernel"
     if update_mode not in ("full", "kernel", "marginal"):
         raise ValueError(f"unknown update_mode {update_mode!r}")
     mu, Sigma = state.mu, state.Sigma
@@ -703,15 +707,18 @@ def run_fleet(
     ``run`` with full updates). No host sync inside the tick loop.
 
     ``update_mode="marginal"`` is ``run_fleet_marginal`` (K1 + K4 on the
-    pose-rows + band carry); ``"marginal_dense"`` and ``"kernel"`` replay
-    each mission through ``run`` with that covariance writeback, as the
-    reference does for its non-default modes."""
+    pose-rows + band carry); ``"marginal_dense"`` and ``"kernel"`` (or its
+    reference name ``"pallas"``) replay each mission through ``run`` with
+    that covariance writeback, as the reference does for its non-default
+    modes."""
     if device_mesh is not None:
         raise NotImplementedError(f"device_mesh= is {_LATER}")
     if update_mode == "marginal":
         return run_fleet_marginal(batched_timeline, params, cfg)
     if update_mode == "marginal_dense":
         update_mode = "marginal"
+    if update_mode == "pallas":
+        update_mode = "kernel"
     if update_mode in ("marginal", "kernel"):
         return _run_per_mission(batched_timeline, params, cfg, update_mode)
     if update_mode not in ("auto", "full"):

@@ -32,6 +32,8 @@ from .. import _build, _tensors
 from ..utils.geometry import wrap_angle
 
 _NEG = -3.0e38
+MAX_N = 2048   # map slots and detections the kernel stages in shared memory
+MAX_M = 512
 
 _ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 10)
@@ -270,8 +272,9 @@ def _check_packed(mu, sig36, tick8, z4, map4, par, what):
     c(par, "par", (16,), f32, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {dev}")
-    if B < 1 or M < 1 or N < 1 or N > 2048:
-        raise ValueError(f"{what}: needs B, M >= 1 and 1 <= N <= 2048, got B={B} M={M} N={N}")
+    if B < 1 or not 1 <= M <= MAX_M or not 1 <= N <= MAX_N:
+        raise ValueError(f"{what}: needs B >= 1, 1 <= M <= {MAX_M} and 1 <= N <= {MAX_N}, "
+                         f"got B={B} M={M} N={N}")
 
 
 def fleet_tick(mu, Sigma, rpy_t, disp_base, have, z, z_valid, map_pos, map_mask,

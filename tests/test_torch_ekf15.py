@@ -49,12 +49,15 @@ def jx():
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
 
+    from jax.experimental import pallas as pl
+
     from smarc_navigation_tpu.models import ekf_15state as J15
     from smarc_navigation_tpu.models import motion_model as jmm
     from smarc_navigation_tpu.ops import ekf15_kernels as jk
     from smarc_navigation_tpu.parallel import fleet as jfleet
 
-    return SimpleNamespace(jax=jax, jnp=jnp, pltpu=pltpu, J15=J15, mm=jmm, k=jk, fleet=jfleet)
+    return SimpleNamespace(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, J15=J15, mm=jmm, k=jk,
+                           fleet=jfleet)
 
 
 def _jcfg(jx, cfg):
@@ -195,6 +198,55 @@ def test_fleet15_tick_reference_on_one_tick(fleet_runs, missions):
     assert torch.equal(P, P.transpose(1, 2))
 
 
+def _sensor_tick(w, x, rng, flags):
+    """One tick row per mission for wiring ``w``: dt 0.02, a random cmd, each
+    sensor's values near the state, its apply flag from ``flags`` ("on",
+    "off" or "random")."""
+    B = x.shape[0]
+    tick = np.zeros((B, w.rows), np.float32)
+    tick[:, 0] = 0.02
+    tick[:, 1:3] = rng.normal(0, 0.5, (B, 2))
+    tick[:, 3] = rng.integers(0, 2, B)
+    row = 4
+    for ix in w.sensor_idx:
+        tick[:, row:row + len(ix)] = x[:, list(ix)] + rng.normal(0, 0.1, (B, len(ix)))
+        tick[:, row + len(ix)] = {"on": np.ones(B), "off": np.zeros(B),
+                                  "random": rng.integers(0, 2, B)}[flags]
+        row += len(ix) + 1
+    return torch.from_numpy(tick)
+
+
+def test_fleet15_tick_flags_off_is_the_predict(jx, fleet_runs):
+    """A tick whose every apply flag is off gives exactly the predict alone
+    (the plain version with no sensor wired), as the CUDA kernel's skipped
+    sensors rely on; the JAX kernel (interpret mode) agrees to 1e-5 of each
+    output's scale (libm ulps of sin, cos and tan)."""
+    (x, P), _ = fleet_runs.res[0]
+    w, _, _, _ = k10.wiring(CFG_L, ("depth", "dvl", "gps", "sbg", "stim", "cmd_vel"))
+    tick = _sensor_tick(w, x.numpy(), np.random.default_rng(3), "off")
+    xo, Po = k10.fleet15_tick(x, P, tick, w)
+    none = dataclasses.replace(w, sensor_idx=(), sensor_noise=())
+    xp, Pp = k10.fleet15_tick(x, P, tick[:, :4].contiguous(), none)
+    assert torch.equal(xo, xp) and torch.equal(Po, Pp)
+    assert not torch.equal(Po, P)
+    jnp, pl = jx.jnp, jx.pl
+    B, f32 = x.shape[0], jnp.float32
+    lanes = [jnp.zeros((r, 128), f32).at[:, :B].set(jnp.asarray(a.reshape(B, r).numpy().T))
+             for a, r in ((torch.cat([x, tick[:, :1]], 1), 16), (P, 225), (tick, w.rows))]
+    with jx.pltpu.force_tpu_interpret_mode():
+        call = pl.pallas_call(
+            jx.k._make_ekf15_kernel(w.sensor_idx, w.sensor_noise, w.q_diag, w.gains, w.limits,
+                                    w.use_control),
+            in_specs=[pl.BlockSpec(memory_space=jx.pltpu.VMEM)] * 3,
+            out_specs=[pl.BlockSpec(memory_space=jx.pltpu.VMEM)] * 2,
+            out_shape=[jx.jax.ShapeDtypeStruct((16, 128), f32),
+                       jx.jax.ShapeDtypeStruct((225, 128), f32)])
+        jxo, jpo = jx.jax.jit(call)(*lanes)
+    for got, want in ((np.asarray(jxo)[:15, :B].T, xp), (np.asarray(jpo)[:, :B].T, Pp.reshape(B, 225))):
+        scale = max(1.0, float(want.abs().max()))
+        np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-5 * scale)
+
+
 # ---------------------------------------------------------------------------
 # the dense paths
 # ---------------------------------------------------------------------------
@@ -285,6 +337,35 @@ def test_fleet15_kernel_matches_plain_on_card(which):
         scale = max(1.0, float(r.abs().max()))
         assert float((g - r).abs().max()) <= 1e-5 * scale
     assert torch.equal(P, P.transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["on", "off", "random"])
+@pytest.mark.parametrize("B", [1, 37, 64])
+@pytest.mark.parametrize("which", ["local", "global"])
+def test_fleet15_kernel_block_per_mission_on_card(which, B, flags):
+    """One block per mission at widths that are not a multiple of anything,
+    with every sensor applied, none, or a random mix (skipped sensors)."""
+    _need_cuda()
+    cfg = CFG_L if which == "local" else CFG_G
+    w, _, _, _ = k10.wiring(cfg, ("depth", "dvl", "gps", "sbg", "stim", "cmd_vel"))
+    rng = np.random.default_rng(B)
+    x = rng.normal(0, 1, (B, 15)).astype(np.float32)
+    x[:, 3:6] = rng.uniform(-0.5, 0.5, (B, 3))
+    A = rng.normal(0, 0.1, (B, 15, 15))
+    P = (A @ np.swapaxes(A, 1, 2) + 0.01 * np.eye(15)).astype(np.float32)
+    P = (P + np.swapaxes(P, 1, 2)) / 2
+    args = (torch.from_numpy(x).cuda(), torch.from_numpy(P).cuda(),
+            _sensor_tick(w, x, rng, flags).cuda(), w)
+    n0 = k10.fleet15_tick.launches
+    xk, Pk = k10.fleet15_tick(*args)
+    torch.cuda.synchronize()
+    assert k10.fleet15_tick.launches == n0 + 1
+    xr, Pr = k10.fleet15_tick_reference(*args)
+    for g, r in ((xk, xr), (Pk, Pr)):
+        scale = max(1.0, float(r.abs().max()))
+        assert float((g - r).abs().max()) <= 1e-5 * scale
+    assert torch.equal(Pk, Pk.transpose(1, 2))
 
 
 @pytest.mark.cuda

@@ -251,10 +251,55 @@ def test_fleet_tick_reference_matches_jax_kernel(jx):
     assert torch.equal(sig[-1], torch.from_numpy(x["Sigma"][-1]))
 
 
+def test_fleet_tick_invalid_detections_and_no_contact(jx):
+    """The invariants the CUDA kernel's skips rely on, in the plain version
+    and the JAX kernel (interpret mode): a round whose detection is invalid
+    matches nothing and leaves μ and Σ as a round that associates nothing
+    does, so removing it changes no state; a mission without contact gets
+    its input state back bit for bit (its matches are still reported)."""
+    x = _tick_inputs(4)                              # B=6, N=16, M=5
+    x["z_valid"][0] = False                          # every detection invalid
+    x["z_valid"][1, 1] = False                       # one invalid round among valid ones
+    x["have"][2] = False                             # no contact, no valid detection
+    x["z_valid"][2] = False
+    with jx.pltpu.force_tpu_interpret_mode():
+        jmu, jsig, jmatch = jx.lk.fleet_tick(*[jx.jnp.asarray(v) for v in x.values()])
+    mu, sig, match = loc_kernels.fleet_tick(*_torch_args(x))
+    np.testing.assert_array_equal(match.numpy(), np.asarray(jmatch))
+    _close(mu.numpy(), np.asarray(jmu), 1e-5, "mu")
+    _close(sig.numpy(), np.asarray(jsig), 1e-5, "Sigma")
+    assert (match[torch.from_numpy(~x["z_valid"])] == -1).all()
+    assert int((match[1] >= 0).sum()) > 0
+    for b in (2, 5):                                 # without contact
+        assert torch.equal(mu[b], torch.from_numpy(x["mu"][b]))
+        assert torch.equal(sig[b], torch.from_numpy(x["Sigma"][b]))
+    # mission 0: invalid detections leave the state as detections that
+    # associate nothing (far outliers) do
+    far = {k: (v.copy() if isinstance(v, np.ndarray) else v) for k, v in x.items()}
+    far["z_valid"][0] = True
+    far["z"][0] = [300.0, 300.0, 300.0]
+    mu_f, sig_f, match_f = loc_kernels.fleet_tick(*_torch_args(far))
+    assert (match_f[0] == -1).all()
+    assert torch.equal(mu[0], mu_f[0]) and torch.equal(sig[0], sig_f[0])
+    # mission 1: the same tick without its invalid round
+    keep = [m for m in range(x["z"].shape[1]) if x["z_valid"][1, m]]
+    one = {k: (v[1:2] if k in ("mu", "Sigma", "rpy_t", "disp_base", "have") else v)
+           for k, v in x.items()}
+    one["z"], one["z_valid"] = x["z"][1:2, keep], x["z_valid"][1:2, keep]
+    mu_1, sig_1, match_1 = loc_kernels.fleet_tick(*_torch_args(one))
+    assert torch.equal(mu[1], mu_1[0]) and torch.equal(sig[1], sig_1[0])
+    assert torch.equal(match[1, keep], match_1[0])
+
+
 def test_fleet_tick_checks_its_inputs():
     args = _torch_args(_tick_inputs(1))
     args[0] = args[0].double()
     with pytest.raises(TypeError, match="mu"):
+        loc_kernels.fleet_tick(*args)
+    args = _torch_args(_tick_inputs(1))              # more detections than the kernel stages
+    B, M = args[5].shape[0], loc_kernels.MAX_M + 1
+    args[5], args[6] = torch.zeros((B, M, 3)), torch.ones((B, M), dtype=torch.bool)
+    with pytest.raises(ValueError, match="M <="):
         loc_kernels.fleet_tick(*args)
 
 
@@ -351,6 +396,35 @@ def test_fleet_tick_kernel_matches_plain_on_card(B, N, M):
         _close(g.cpu().numpy(), w.cpu().numpy(), 1e-5)
     assert torch.equal(got[0][-1].cpu(), torch.from_numpy(x["mu"][-1]))
     assert torch.equal(got[1][-1].cpu(), torch.from_numpy(x["Sigma"][-1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 130])
+def test_fleet_tick_kernel_skips_on_card(B):
+    """One block per mission at widths that are not a multiple of anything,
+    with valid and invalid detections mixed, and missions with and without
+    contact (with and without a valid detection)."""
+    _need_cuda()
+    x = _tick_inputs(5, B=B, N=64, M=8)
+    rng = np.random.default_rng(B)
+    x["z_valid"] = rng.random((B, 8)) < 0.6
+    x["have"] = rng.random(B) < 0.7
+    x["have"][0], x["z_valid"][0, :2] = True, True
+    if B > 3:
+        x["z_valid"][1] = False                      # contact, nothing valid
+        x["have"][2], x["z_valid"][2] = False, False  # the whole tick skipped
+        x["have"][3], x["z_valid"][3, 0] = False, True  # no contact, matches reported
+    got = loc_kernels.fleet_tick(*_torch_args(x, "cuda"))
+    torch.cuda.synchronize()
+    want = loc_kernels.fleet_tick_reference(*_torch_args(x, "cuda"))
+    assert torch.equal(got[2], want[2])
+    assert int((got[2] >= 0).sum()) > 0
+    assert (got[2].cpu()[torch.from_numpy(~x["z_valid"])] == -1).all()
+    for g, w in zip(got[:2], want[:2]):
+        _close(g.cpu().numpy(), w.cpu().numpy(), 1e-5)
+    off = torch.from_numpy(~x["have"])
+    assert torch.equal(got[0].cpu()[off], torch.from_numpy(x["mu"])[off])
+    assert torch.equal(got[1].cpu()[off], torch.from_numpy(x["Sigma"])[off])
 
 
 @pytest.mark.cuda

@@ -143,6 +143,34 @@ def test_run_matches_jax_dense(case, update_mode):
                                atol=1e-4 * np.abs(jS).max())
 
 
+def test_pallas_mode_is_the_kernel_mode(case):
+    """``update_mode="pallas"``, the reference's name of the single-mission
+    update-kernel path, is ``"kernel"``: ``da_commit`` (through ``step``),
+    ``run`` and ``run_fleet`` give exactly what ``"kernel"`` gives; an
+    unknown mode still raises."""
+    params, tl = case["params"], case["tls"][0].to("cpu")
+    runs = {mode: S.run(tl, params, CFG, update_mode=mode) for mode in ("kernel", "pallas")}
+    fleet_p = S.run_fleet(fleet.batch_timelines([case["tls"][0]]).to("cpu"), params, CFG,
+                          update_mode="pallas")
+    (fk, ok), (fp, op) = runs["kernel"], runs["pallas"]
+    assert set(ok) == set(op) == set(fleet_p[1])
+    for key in ok:
+        assert torch.equal(ok[key], op[key]), key
+        assert torch.equal(ok[key], fleet_p[1][key][:, 0]), key
+    for a, b, c in zip(fk, fp, fleet_p[0]):
+        assert torch.equal(a, b) and torch.equal(a, c[0])
+    # one tick with an MBES burst, from the replay's final state
+    k = int(np.flatnonzero(tl.events["mbes"].mask.any(1).numpy())[-1])
+    tick = tl.slice_tick(k)
+    sk, outk = S.step(CFG, params, fk, tick, update_mode="kernel")
+    sp, outp = S.step(CFG, params, fk, tick, update_mode="pallas")
+    assert int((outk["matched_mbes"] >= 0).sum()) > 0
+    assert all(torch.equal(a, b) for a, b in zip(sk, sp))
+    assert all(torch.equal(outk[key], outp[key]) for key in outk)
+    with pytest.raises(ValueError, match="update_mode"):
+        S.step(CFG, params, fk, tick, update_mode="lowrank")
+
+
 def test_run_fleet_mission_equals_run(case):
     """The fleet replay of a mission is the single-mission replay."""
     tl = case["tls"][1]
