@@ -84,6 +84,17 @@ Phases (any failure exits nonzero; nothing is caught):
      50), 120, 64)`` (T=6001) through ``run_fleet`` (K10 once per tick) and
      ``run_dual_fleet`` with ``global_config(50)`` (K10 twice per tick);
      then K10's mean device µs per launch over each and its share, as in 14.
+Phases 5, 5b, 5c, 14 and 15 run each replay's tick loop as a cached CUDA
+graph (``utils/graphs.py``), its default on the card. Before each of those
+seven replays is timed, its eager loop (``graph=False``) runs on the same
+inputs; the first graphed call (eager warm-up, capture and instantiate),
+three replays and a replay of the cached graph on a second timeline of the
+same shape (the missions permuted, or another seed's mission and map) must
+each be bitwise the eager loop's result on the same inputs: every output
+and the final state. Each prints µs per tick of the first call, the median
+replay and the eager call; the timed replay is a cache hit, and the
+profiled one after it gives each path kernel's share of it and the card's
+busy share (all kernels' device time over the replay time).
 Every kernel's ``ms`` is its device time from ``torch.profiler`` (the
 CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); the
 back-to-back wall time per wrapper call is printed beside it, and
@@ -486,6 +497,117 @@ def timed(fn):
     return r, start.elapsed_time(end), time.perf_counter() - t0
 
 
+def bitwise(a, b) -> bool:
+    """Bitwise equality of two tensors (NaNs included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+def leaves(x) -> list:
+    """The tensors of a replay's result (tuples, NamedTuples, dicts), in a
+    fixed order."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in leaves(x[k])]
+    return [t for v in x for t in leaves(v)]
+
+
+def assert_bitwise(got, want, what) -> int:
+    g, w = leaves(got), leaves(want)
+    if len(g) != len(w):
+        raise AssertionError(f"{what}: {len(g)} outputs, the eager loop {len(w)}")
+    for i, (a, b) in enumerate(zip(g, w)):
+        if not bitwise(a, b):
+            raise AssertionError(f"{what}: output {i} {tuple(a.shape)} differs from the eager loop's")
+    return len(g)
+
+
+def graph_vs_eager(what, run, run2, T):
+    """A graphed replay against its eager loop: ``run(graph)`` on the
+    replay's inputs, ``run2(graph)`` on a second timeline of the same shape.
+    The first graphed call (eager warm-up, capture and instantiate), three
+    replays and a replay of the cached graph on the second timeline must
+    each be bitwise the eager loop's result on the same inputs. Prints and
+    returns µs per tick of the first call, the median replay and the eager
+    call (CUDA events around each synchronized call)."""
+    import statistics
+
+    from smarc_navigation_tpu_torch.utils import graphs
+
+    eager, eager_ms, _ = timed(lambda: run(False))
+    n0 = graphs.captures
+    first, first_ms, first_s = timed(lambda: run(True))
+    if graphs.captures == n0:
+        raise AssertionError(f"{what}: the first graphed call captured no graph")
+    n_out = assert_bitwise(first, eager, f"{what} (capture)")
+    del first
+    steady = []
+    for i in range(3):
+        r, ms, _ = timed(lambda: run(True))
+        assert_bitwise(r, eager, f"{what} (replay {i})")
+        steady.append(ms)
+    del eager, r
+    eager2 = run2(False)
+    n1 = graphs.captures
+    hit = run2(True)
+    if graphs.captures != n1:
+        raise AssertionError(f"{what}: the second timeline missed the cached graph")
+    assert_bitwise(hit, eager2, f"{what} (second timeline)")
+    res = dict(first_us=first_ms * 1e3 / T, steady_us=statistics.median(steady) * 1e3 / T,
+               eager_us=eager_ms * 1e3 / T, first_s=first_s)
+    print(f"{what} graph: {n_out} outputs bitwise the eager loop's (capture, 3 replays, a second "
+          f"timeline through the cached graph); us/tick first call {res['first_us']:.1f} "
+          f"({first_s:.2f} s host: eager warm-up + capture + instantiate), steady "
+          f"{res['steady_us']:.1f} (median of "
+          + ", ".join(f"{m * 1e3 / T:.1f}" for m in steady)
+          + f"), eager {res['eager_us']:.1f}", flush=True)
+    return res
+
+
+def device_share(fn, kernels, replay_ms, what):
+    """One more call of fn() (a replay) under torch.profiler: each kernel of
+    ``kernels`` ({name fragment: launches}) with its mean device µs per
+    launch and its share of the timed replay (µs × launches / replay time),
+    then the device time of every kernel of the call together, as a share
+    of the replay (the card's busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per = {k: [0.0, 0] for k in kernels}
+    busy = 0.0
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            busy += e.self_device_time_total
+            for k in kernels:
+                if k in e.key:
+                    per[k][0] += e.self_device_time_total
+                    per[k][1] += e.count
+    parts, share = [], 0.0
+    for k, launches in kernels.items():
+        total, count = per[k]
+        if not 1 <= count <= launches:   # the trace may drop a record; it never invents one
+            raise AssertionError(f"{what}: profiler saw {count} launches of {k}, expected {launches}")
+        us = total / count
+        share += us * launches / (replay_ms * 1e3)
+        parts.append(f"{k} {us:.3f} us per launch ({count} of {launches} traced)")
+    print(f"{what}: " + "; ".join(parts) + f"; x launches = {100 * share:.1f} % of the replay's "
+          f"{replay_ms:.1f} ms; all kernels {busy / 1e3:.1f} ms device = "
+          f"{100 * busy / (replay_ms * 1e3):.1f} % busy", flush=True)
+    return share
+
+
 def pf_main_paths(dev, cfg, params, counters):
     """Phases 7-10 on the combined workload's missions (``cfg``/``params``
     the SLAM half's); returns (phase-7 kernel results, the PF headline's
@@ -814,8 +936,8 @@ def slam256_slice_phase(dev, cfg, params, tl8_np):
 
 
 def slam256_replays(dev, cfg, params, tl, counters):
-    """Phases 5b-5c: the L=256 replays in both semantics; returns their
-    launch counts."""
+    """Phases 5b-5c: the L=256 replays in both semantics, graphed against
+    eager; returns their launch counts and graph timings."""
     import torch
 
     from smarc_navigation_tpu_torch.models import ekf_slam as S
@@ -824,8 +946,13 @@ def slam256_replays(dev, cfg, params, tl, counters):
     B, T = tl.ticks.shape
     S.run_fleet(tl.map(lambda x: x[:, :10]), params, cfg)                        # warm-up
     S.run_fleet(tl.map(lambda x: x[:, :10]), params, cfg, update_mode="marginal")
-    launches = {}
+    perm = torch.roll(torch.arange(B, device=dev), 1)    # the missions permuted
+    tl2 = tl.map(lambda x: x[perm])
+    launches, graph = {}, {}
     for mode in ("full", "marginal"):
+        graph[mode] = graph_vs_eager(
+            f"L=256 {mode} replay", lambda g: S.run_fleet(tl, params, cfg, update_mode=mode, graph=g),
+            lambda g: S.run_fleet(tl2, params, cfg, update_mode=mode, graph=g), T)
         for f in counters:
             f.launches = 0
         (final, out), ms, wall = timed(lambda: S.run_fleet(tl, params, cfg, update_mode=mode))
@@ -841,10 +968,15 @@ def slam256_replays(dev, cfg, params, tl, counters):
         if not int((n_act > 0).sum()) == B:
             raise AssertionError(f"L=256 {mode} replay: a mission mapped nothing: {n_act}")
         launches[mode] = n
-        print(f"L=256 {mode} replay B={B} T={T}: {ms:.1f} ms on the card ({wall:.2f} s host), "
-              f"{ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; n_active min "
-              f"{int(n_act.min())} mean {float(n_act.float().mean()):.1f} max {int(n_act.max())}; "
-              f"launches {n}", flush=True)
+        print(f"L=256 {mode} replay B={B} T={T} (graphed): {ms:.1f} ms on the card ({wall:.2f} s "
+              f"host), {ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; n_active "
+              f"min {int(n_act.min())} mean {float(n_act.float().mean()):.1f} max "
+              f"{int(n_act.max())}; launches {n}", flush=True)
+        kernels = ({"da_kernel": T, "update_kernel": T, "downdate_kernel": T} if mode == "full"
+                   else {"da_kernel": T, "marginal_kernel": T})
+        graph[mode]["share"] = device_share(
+            lambda: S.run_fleet(tl, params, cfg, update_mode=mode), kernels, ms,
+            f"L=256 {mode} replay (graphed)")
 
     # the two K2 schedules of the full replay over the same first ticks
     head = tl.map(lambda x: x[:, :N_ONE_KERNEL])
@@ -863,7 +995,7 @@ def slam256_replays(dev, cfg, params, tl, counters):
           f"{ms_s * 1e3 / N_ONE_KERNEL:.1f} us/tick, one-kernel schedule "
           f"{ms_o * 1e3 / N_ONE_KERNEL:.1f} us/tick; associations equal, max pose difference "
           f"{d:.3e}", flush=True)
-    return launches
+    return launches, graph
 
 
 LOC_SPEC = dict(num_landmarks=16, dvl_std=0.05, mbes_std=0.05, landmark_area_m=20.0,
@@ -981,17 +1113,6 @@ def ekf15_kernel_phase(dev, tl15):
     return res
 
 
-def replay_share(fn, kernel, launches, replay_ms, what):
-    """Print the kernel's mean device µs per launch over one more call of
-    fn() (the replay) and its share of the timed replay (µs × launches /
-    replay time)."""
-    us, seen = kernel_us(fn, 1, kernel, launches)
-    share = us * launches / (replay_ms * 1e3)
-    print(f"{what}: {kernel} {us:.3f} us device per launch over the replay ({seen} of "
-          f"{launches} launches traced); x {launches} launches = {100 * share:.1f} % of the "
-          f"replay's {replay_ms:.1f} ms", flush=True)
-
-
 def filter_slices_phase(dev):
     """Phase 13: the localization and 15-state slices, kernels vs plain on
     8 distinct missions over 100 ticks (the reference tests' stable
@@ -1039,20 +1160,36 @@ def filter_slices_phase(dev):
 
 
 def filter_replays(dev, cfg, params, tl64, tl15):
-    """Phases 14-15: the localization and 15-state replays, then each
-    kernel's device time over each replay; returns their launch counts."""
+    """Phases 14-15: the localization and 15-state replays, graphed against
+    eager, then each kernel's device time over each replay; returns their
+    launch counts and graph timings."""
     import torch
 
+    from smarc_navigation_tpu_torch.io.workloads import ekf15_fleet_timelines, loc_fleet_timelines
     from smarc_navigation_tpu_torch.models import ekf_15state as E15
     from smarc_navigation_tpu_torch.models import ekf_localization as LOC
     from smarc_navigation_tpu_torch.ops import ekf15_kernels as K10
     from smarc_navigation_tpu_torch.ops import loc_kernels as K9
 
-    launches = {}
+    # second timelines of the same shapes: another mission (and its map)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tl2_np, landmarks2 = loc_fleet_timelines(cfg, 60.0, 64, seed=8)
+    params2 = LOC.make_params(landmarks2, cfg, device=dev)
+    tl15_2 = ekf15_fleet_timelines(E15.Ekf15Config(frequency=50.0), 120.0, 64, seed=6).to(dev)
+
+    def tiled(x, B):
+        return x.repeat((B // 64,) + (1,) * (x.dim() - 1))
+
+    launches, graph = {}, {}
     LOC.run_fleet(tl64.map(lambda x: x[:, :20]), params, cfg)                    # warm-up
     for B in (64, 512):
-        tl = tl64 if B == 64 else tl64.map(lambda x: x.repeat((B // 64,) + (1,) * (x.dim() - 1)))
+        tl = tl64 if B == 64 else tl64.map(lambda x: tiled(x, B))
+        tl2 = tl2_np.to(dev).map(lambda x: tiled(x, B))
         T = tl.ticks.shape[1]
+        graph[f"loc{B}"] = graph_vs_eager(
+            f"loc replay B={B}", lambda g: LOC.run_fleet(tl, params, cfg, graph=g),
+            lambda g: LOC.run_fleet(tl2, params2, cfg, graph=g), T)
         K9.fleet_tick.launches = 0
         (final, out), ms, wall = timed(lambda: LOC.run_fleet(tl, params, cfg))
         launches[f"loc{B}"] = K9.fleet_tick.launches
@@ -1065,16 +1202,20 @@ def filter_replays(dev, cfg, params, tl64, tl15):
         if not n_match > 0:
             raise AssertionError(f"loc replay B={B}: no detection associated")
         steps = B * T / (ms / 1e3)
-        print(f"loc replay B={B} T={T} N={params.map_pos.shape[0]} M={cfg.max_obs}: {ms:.1f} ms on the "
+        print(f"loc replay B={B} T={T} N={params.map_pos.shape[0]} M={cfg.max_obs} (graphed): {ms:.1f} ms on the "
               f"card ({wall:.3f} s host), {ms * 1e3 / T:.1f} us/fleet tick, {steps:.0f} steps/s = "
               f"{steps / cfg.system_freq:.0f}x the {cfg.system_freq:.0f} Hz node; {n_match} "
               f"associations; launches {launches[f'loc{B}']}", flush=True)
-        replay_share(lambda: LOC.run_fleet(tl, params, cfg), "loc_tick_kernel", T, ms,
-                     f"loc replay B={B}")
+        graph[f"loc{B}"]["share"] = device_share(
+            lambda: LOC.run_fleet(tl, params, cfg), {"loc_tick_kernel": T}, ms,
+            f"loc replay B={B} (graphed)")
 
     cl, cg = E15.Ekf15Config(frequency=50.0), E15.global_config(50.0)
     B, T = tl15.ticks.shape
     E15.run_fleet(tl15.map(lambda x: x[:, :20]), cl)                            # warm-up
+    graph["ekf15"] = graph_vs_eager(
+        "ekf15 replay (local)", lambda g: E15.run_fleet(tl15, cl, graph=g),
+        lambda g: E15.run_fleet(tl15_2, cl, graph=g), T)
     K10.fleet15_tick.launches = 0
     ((x, P), out), ms, wall = timed(lambda: E15.run_fleet(tl15, cl))
     launches["ekf15"] = K10.fleet15_tick.launches
@@ -1082,10 +1223,14 @@ def filter_replays(dev, cfg, params, tl64, tl15):
         raise AssertionError(f"ekf15 replay: {launches['ekf15']} K10 launches for {T} ticks")
     if not (bool(torch.isfinite(out["x"]).all()) and bool(torch.isfinite(P).all())):
         raise AssertionError("ekf15 replay: non-finite state")
-    print(f"ekf15 replay (local) B={B} T={T}: {ms:.1f} ms on the card ({wall:.3f} s host), "
+    print(f"ekf15 replay (local) B={B} T={T} (graphed): {ms:.1f} ms on the card ({wall:.3f} s host), "
           f"{ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; launches "
           f"{launches['ekf15']}", flush=True)
-    replay_share(lambda: E15.run_fleet(tl15, cl), "ekf15_kernel", T, ms, "ekf15 replay (local)")
+    graph["ekf15"]["share"] = device_share(lambda: E15.run_fleet(tl15, cl), {"ekf15_kernel": T},
+                                           ms, "ekf15 replay (local, graphed)")
+    graph["ekf15_dual"] = graph_vs_eager(
+        "ekf15 dual replay", lambda g: E15.run_dual_fleet(tl15, tl15, cl, cg, graph=g),
+        lambda g: E15.run_dual_fleet(tl15_2, tl15_2, cl, cg, graph=g), T)
     K10.fleet15_tick.launches = 0
     (_l, _g, mo), ms_d, wall_d = timed(lambda: E15.run_dual_fleet(tl15, tl15, cl, cg))
     launches["ekf15_dual"] = K10.fleet15_tick.launches
@@ -1093,17 +1238,19 @@ def filter_replays(dev, cfg, params, tl64, tl15):
         raise AssertionError(f"ekf15 dual replay: {launches['ekf15_dual']} K10 launches for {T} ticks")
     if not (bool(torch.isfinite(mo.trans).all()) and bool(torch.isfinite(mo.rot).all())):
         raise AssertionError("ekf15 dual replay: non-finite map->odom")
-    print(f"ekf15 dual replay B={B} T={T}: {ms_d:.1f} ms on the card ({wall_d:.3f} s host), "
+    print(f"ekf15 dual replay B={B} T={T} (graphed): {ms_d:.1f} ms on the card ({wall_d:.3f} s host), "
           f"{ms_d * 1e3 / T:.1f} us/fleet tick, {B * T / (ms_d / 1e3):.0f} dual pairs/s; final "
           f"map->odom |t| max {float(mo.trans[-1].norm(dim=-1).max()):.3f} m; launches "
           f"{launches['ekf15_dual']}", flush=True)
-    replay_share(lambda: E15.run_dual_fleet(tl15, tl15, cl, cg), "ekf15_kernel", 2 * T, ms_d,
-                 "ekf15 dual replay")
-    return launches
+    graph["ekf15_dual"]["share"] = device_share(
+        lambda: E15.run_dual_fleet(tl15, tl15, cl, cg), {"ekf15_kernel": 2 * T}, ms_d,
+        "ekf15 dual replay (graphed)")
+    return launches, graph
 
 
 def filter_fleets(dev):
-    """Phases 11-15; returns (K9 results, K10 results, launch counts)."""
+    """Phases 11-15; returns (K9 results, K10 results, (launch counts,
+    graph timings))."""
     from smarc_navigation_tpu_torch.configs import EKFLocConfig
     from smarc_navigation_tpu_torch.io.workloads import ekf15_fleet_timelines, loc_fleet_timelines
     from smarc_navigation_tpu_torch.models import ekf_15state as E15
@@ -1301,6 +1448,10 @@ def main():
     # --- 5. the headline replay (main path) ------------------------------------
     S.run_fleet(tl.map(lambda x: x[:, :10]), params, cfg)      # warm-up
     torch.cuda.synchronize()
+    tl_perm = tl.map(lambda x: x[torch.roll(torch.arange(B, device=dev), 1)])
+    g_head = graph_vs_eager(f"headline run_fleet B={B} T={T}",
+                            lambda g: S.run_fleet(tl, params, cfg, graph=g),
+                            lambda g: S.run_fleet(tl_perm, params, cfg, graph=g), T)
     counters = [K1.da_lanes, K2.sequential_update_fleet, K2.sequential_update,
                 K2.sequential_update_marginal_fleet, K2.symmetric_downdate, K1.hungarian_lanes]
     for f in counters:
@@ -1317,7 +1468,7 @@ def main():
     if not int((n_act > 0).sum()) >= B // 2:
         raise AssertionError(f"headline: too few missions mapped anything: {n_act}")
     us_tick = ms * 1e3 / T
-    print(f"headline run_fleet B={B} T={T}: {ms:.1f} ms on the card ({wall:.2f} s host), "
+    print(f"headline run_fleet B={B} T={T} (graphed): {ms:.1f} ms on the card ({wall:.2f} s host), "
           f"{us_tick:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; "
           f"n_active min {int(n_act.min())} mean {float(n_act.float().mean()):.1f} "
           f"max {int(n_act.max())}", flush=True)
@@ -1340,15 +1491,18 @@ def main():
         raise AssertionError("step: K3 was not launched")
     print(f"step (mission 0, tick {k}): matched {o_k['matched_mbes'].tolist()}, "
           f"mu err vs dense {err:.3e}; launches {launches}", flush=True)
+    g_head["share"] = device_share(lambda: S.run_fleet(tl, params, cfg),
+                                   {"da_kernel": T, "update_kernel": T}, ms,
+                                   "headline run_fleet (graphed)")
 
     # --- 5b-5c. the L=256 replays in both semantics -----------------------------
-    l256 = slam256_replays(dev, cfg256, params256, tl256, counters)
+    l256, g256 = slam256_replays(dev, cfg256, params256, tl256, counters)
 
     # --- 7-10. the PF kernels, slice, headline and the combined mission ------
     pk, pf_launch, pt_launch = pf_main_paths(dev, cfg, params, counters)
 
     # --- 11-15. the localization and 15-state fleets ----------------------------
-    k9, k10, fl_launch = filter_fleets(dev)
+    k9, k10, (fl_launch, g_filters) = filter_fleets(dev)
 
     def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None):
         return dict(name=name, route="cuda", source=f"smarc_navigation_tpu_torch/csrc/{source}",
@@ -1389,6 +1543,14 @@ def main():
               max(v["err"] for v in k10.values()), k10["local"]["ms"], k10["local"]["plain_ms"],
               k10["local"]["bound"]),
     ]
+    graphed = {"slam-fleet128-L64": g_head, "slam-fleet32-L256-full": g256["full"],
+               "slam-fleet32-L256-marginal": g256["marginal"], "loc-fleet64": g_filters["loc64"],
+               "loc-fleet512": g_filters["loc512"], "ekf15-fleet64": g_filters["ekf15"],
+               "ekf15-dual64": g_filters["ekf15_dual"]}
+    for name, g in graphed.items():
+        print(f"graph summary {name}: us/tick first call {g['first_us']:.1f}, steady "
+              f"{g['steady_us']:.1f}, eager {g['eager_us']:.1f}; path kernels "
+              f"{100 * g['share']:.1f} % of the steady replay; graphed == eager bitwise", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,10 +14,11 @@ Slice 3 adds the L=256 SLAM fleet in both covariance semantics (K4, K11,
 K12); slice 4 the EKF-localization fleet (``models.ekf_localization``, K9)
 and the 15-state dual-EKF fleet (``models.ekf_15state``, K10). All twelve
 kernels are hand-written CUDA C++ for Hopper (``csrc/``), built at first use
-by ``_build.py``.
+by ``_build.py``. On the card the SLAM, localization and 15-state fleet
+replays run their tick loops as cached CUDA graphs (``utils/graphs.py``).
 
 Layout (same paths as the reference):
-  utils/     geometry, linalg
+  utils/     geometry, linalg, graphs (the cached CUDA graphs of the tick loops)
   io/        numpy mission simulator, the SLAM, combined, localization and
              15-state fleet workloads
   ops/       timeline, assignment, bezier, resampling, slam_da_kernels (K1,

@@ -90,26 +90,29 @@ def combined_workload(slam_cfg: EKFSlamConfig, duration: float, pf_seed: int = 3
     return tl_slam, pf.pf_timeline(m, freq_hz=10.0)
 
 
-def loc_fleet_timelines(cfg: EKFLocConfig, duration: float, B: int):
+def loc_fleet_timelines(cfg: EKFLocConfig, duration: float, B: int, seed: int = 7):
     """The benchmark's EKF-localization fleet (``bench.py:570-576``): one
     simulated mission (16 landmarks, DVL and MBES noise 0.05, seed 7) tiled
     to B -> (batched numpy Timeline, the mission's landmarks for
-    ``ekf_localization.make_params``)."""
+    ``ekf_localization.make_params``). Another ``seed`` gives another
+    mission of the same shape."""
     from ..io import sim
     from ..models import ekf_localization as loc
     from ..parallel import fleet
 
     m = sim.simulate(sim.MissionSpec(duration_s=duration, num_landmarks=16, dvl_std=0.05,
-                                     mbes_std=0.05, seed=7))
+                                     mbes_std=0.05, seed=seed))
     return fleet.batch_timelines([loc.loc_timeline(m, cfg)] * B), m.landmarks
 
 
-def ekf15_fleet_timelines(cfg, duration: float, B: int, include_gps: bool = True):
+def ekf15_fleet_timelines(cfg, duration: float, B: int, include_gps: bool = True,
+                          seed: int = 5):
     """The benchmark's 15-state EKF fleet (``bench.py:692-694``): one
-    simulated mission (seed 5) through ``ekf15_timeline`` tiled to B."""
+    simulated mission (seed 5; another ``seed`` gives another mission of the
+    same shape) through ``ekf15_timeline`` tiled to B."""
     from ..io import sim
     from ..models import ekf_15state as e15
     from ..parallel import fleet
 
-    m = sim.simulate(sim.MissionSpec(duration_s=duration, seed=5))
+    m = sim.simulate(sim.MissionSpec(duration_s=duration, seed=seed))
     return fleet.batch_timelines([e15.ekf15_timeline(m, cfg, include_gps=include_gps)] * B)

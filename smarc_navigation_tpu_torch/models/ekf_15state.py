@@ -355,12 +355,14 @@ def ekf15_timeline(mission, cfg: Ekf15Config, include_gps: bool = False):
     )
 
 
-def run_fleet(batched_timeline, cfg: Ekf15Config = Ekf15Config(), x0=None):
+def run_fleet(batched_timeline, cfg: Ekf15Config = Ekf15Config(), x0=None,
+              graph: bool = True):
     """Fleet replay through K10, one launch per tick
-    (``ops.ekf15_kernels.run_fleet15``)."""
+    (``ops.ekf15_kernels.run_fleet15``; on CUDA tensors a cached CUDA graph
+    of the tick loop unless ``graph=False``)."""
     from ..ops import ekf15_kernels
 
-    return ekf15_kernels.run_fleet15(batched_timeline, cfg, x0=x0)
+    return ekf15_kernels.run_fleet15(batched_timeline, cfg, x0=x0, graph=graph)
 
 
 def run_dual_fleet(
@@ -368,13 +370,15 @@ def run_dual_fleet(
     batched_global,
     cfg_local: Ekf15Config = Ekf15Config(),
     cfg_global: Ekf15Config | None = None,
+    graph: bool = True,
 ):
     """The dual-EKF pair at fleet scale: both filters of every mission
-    through K10 (two replays, each with its own sensor wiring) plus the
-    batched per-tick map->odom corrections (T, B, ...)."""
+    through K10 (two replays, each with its own sensor wiring and so its own
+    cached CUDA graph on the card unless ``graph=False``) plus the batched
+    per-tick map->odom corrections (T, B, ...)."""
     if cfg_global is None:
         cfg_global = global_config(frequency=cfg_local.frequency)
-    final_l, out_l = run_fleet(batched_local, cfg_local)
-    final_g, out_g = run_fleet(batched_global, cfg_global)
+    final_l, out_l = run_fleet(batched_local, cfg_local, graph=graph)
+    final_g, out_g = run_fleet(batched_global, cfg_global, graph=graph)
     map_odom = map_to_odom_correction(out_g["x"], out_l["x"])
     return (final_l, out_l), (final_g, out_g), map_odom

@@ -292,10 +292,12 @@ def run_fleet(
     batched_timeline,
     params: EKFLocParams,
     cfg: EKFLocConfig = EKFLocConfig(),
+    graph: bool = True,
 ):
     """Whole-fleet replay: the per-tick inputs staged over (B, T)
     (``stage_fleet``), then exactly one K9 launch per tick
-    (``loc_kernels.run_ticks``).
+    (``loc_kernels.run_ticks``; on CUDA tensors a cached CUDA graph of the
+    tick loop unless ``graph=False``).
 
     Returns (final batched state, out) with out like ``run``'s with a
     mission axis: mu (T, B, 6), sigma_diag (T, B, 6), matches (T, B, M)
@@ -305,7 +307,8 @@ def run_fleet(
     s0 = init_state(cfg, device=tick_t.device)
     mu0 = s0.mu.expand(B, 6).contiguous()
     sig0 = s0.Sigma.reshape(36).expand(B, 36).contiguous()
-    mu_t, sigd_t, match_t, sig_f = loc_kernels.run_ticks(mu0, sig0, tick_t, z_t, map4, par)
+    mu_t, sigd_t, match_t, sig_f = loc_kernels.run_ticks(mu0, sig0, tick_t, z_t, map4, par,
+                                                         graph=graph)
     out = {
         "mu": mu_t,
         "sigma_diag": sigd_t,

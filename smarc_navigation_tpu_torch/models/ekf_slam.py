@@ -36,6 +36,7 @@ from torch.func import jacfwd, vmap
 from ..configs import EKFSlamConfig
 from ..ops import assignment, slam_da_kernels, slam_kernels
 from ..ops.timeline import build_timeline
+from ..utils import graphs
 from ..utils.geometry import Transform, rotmat_from_rpy, rpy_from_quat, wrap_angle
 from ..utils.linalg import chi2_quantile, inv_small
 
@@ -285,10 +286,11 @@ def _da_core(pose, lm_all, active, Spp, Spl, Sll, z, z_mask, sensor, params,
     M = z.shape[0]
     f32 = d_m.dtype
     gate = (d_m < lam) & active[:, None] & z_mask[None, :]
-    out_c = torch.tensor(outlier, dtype=f32, device=d_m.device)
+    # outlier and mh_dist: Python floats, or 0-d tensors (the fleet loops')
+    out_c = torch.as_tensor(outlier, dtype=f32, device=d_m.device)
     cost_known = torch.where(gate, d_m, out_c)                         # (L,M)
     eye = torch.eye(M, dtype=torch.bool, device=d_m.device)
-    cost_cand = torch.where(eye, torch.tensor(mh_dist, dtype=f32, device=d_m.device), out_c)
+    cost_cand = torch.where(eye, torch.as_tensor(mh_dist, dtype=f32, device=d_m.device), out_c)
     cost = torch.cat([cost_known, cost_cand], dim=0)                   # (L+M,M)
     return cost, (H, S_inv, nu, cand, H_cand, S_inv_cand, nu_cand)
 
@@ -576,31 +578,49 @@ def initial_band(Sigma0: torch.Tensor, L: int) -> torch.Tensor:
     return band
 
 
+class PassConsts(NamedTuple):
+    """A DA pass's constants as tensors, made once per replay, never per
+    tick (a tensor built from host data inside a tick cannot be captured in
+    a CUDA graph)."""
+    new_cov: torch.Tensor   # (3,) the sensor's new-landmark covariance
+    q_diag: torch.Tensor    # (dim,)
+    lam: torch.Tensor       # 0-d χ² gate
+    outlier: torch.Tensor   # 0-d
+    mh_dist: torch.Tensor   # 0-d
+
+
+def pass_consts(params: SlamParams, cfg: EKFSlamConfig, sensor: SensorSpec) -> PassConsts:
+    dt, dev = params.R.dtype, params.R.device
+    return PassConsts(new_cov=torch.tensor(sensor.new_lm_cov, dtype=dt, device=dev),
+                      q_diag=torch.diagonal(sensor.q(params)), lam=sensor.lam(params),
+                      outlier=torch.full((), cfg.outlier_cost, dtype=dt, device=dev),
+                      mh_dist=torch.full((), sensor.mh_dist(cfg), dtype=dt, device=dev))
+
+
 def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
                   cfg: EKFSlamConfig, sensor: SensorSpec = None,
-                  a8=None, band=None):
+                  a8=None, band=None, consts: PassConsts = None):
     """Fleet DA pass (MBES or FLS): DA kernel (K1) + fleet update kernel
     (K2). state_b is a batched SlamState; z_b (B, M, 3), mask_b (B, M).
 
     With ``a8`` given (see ``_fleet_predict``), state_b.Sigma is the RAW
     (pre-predict) covariance and both kernels apply the motion predict to
     what they read. With ``band`` (B, 24, L) given, K1 reads the landmark
-    block diagonal from it and K2 returns the new band as a third element."""
+    block diagonal from it and K2 returns the new band as a third element.
+    ``consts`` (``pass_consts``) is made here when not given."""
     sensor = MBES if sensor is None else sensor
+    c = pass_consts(params, cfg, sensor) if consts is None else consts
     B = state_b.mu.shape[0]
     L = cfg.max_landmarks
-    dt, dev = state_b.mu.dtype, state_b.mu.device
     r_sb = params.r_fls_base if sensor.kind == "fls" else None
     t_sb = params.t_fls_base if sensor.kind == "fls" else None
     A = a8[:, 0:6, 0:6].contiguous() if a8 is not None else None
     r_full = a8[:, 0:6, 8:14].contiguous() if a8 is not None else None
-    new_cov = torch.tensor(sensor.new_lm_cov, dtype=dt, device=dev)
     ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = slam_da_kernels.da_lanes(
         state_b.mu[:, 0:6].contiguous(), state_b.n_active, state_b.active,
         state_b.mu[:, 6:].reshape(B, L, 3).contiguous(), state_b.Sigma,
         z_b[:, :, 0:3].contiguous(), mask_b.contiguous(),
-        torch.diagonal(sensor.q(params)), sensor.lam(params),
-        cfg.outlier_cost, sensor.mh_dist(cfg), new_cov,
+        c.q_diag, c.lam, c.outlier, c.mh_dist, c.new_cov,
         sensor=sensor.kind, r_sb=r_sb, t_sb=t_sb, A=A, r_full=r_full, band=band,
     )
     lm_ix = 6 + 3 * slot
@@ -609,7 +629,7 @@ def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
     n_active = state_b.n_active + add.sum(1, dtype=torch.int32)
     upd = slam_kernels.sequential_update_fleet(
         state_b.Sigma, state_b.mu, H_sel, SinvH, nu_sel, lm_ix, do, add,
-        new_cov, cand, a8, band)
+        c.new_cov, cand, a8, band)
     matched = torch.where(do, slot, torch.full_like(slot, -1))
     new_state = SlamState(mu=upd[1], Sigma=upd[0], active=active,
                           n_active=n_active, mu_auv_odom=state_b.mu_auv_odom)
@@ -618,29 +638,38 @@ def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
     return new_state, matched
 
 
-def _predict_a8(mu_b, mu_auv_odom, odom_pose, valid, params: SlamParams):
+def a8_consts(R: torch.Tensor, dt) -> tuple:
+    """The constant parts of ``_predict_a8``'s a8: (c1, c2), c1 (8, 16) =
+    the identity on rows 0:3 and 6:8 plus R in rows 0:6, cols 8:14; c2 the
+    (8, 16) identity (an invalid tick's a8). Built without host data."""
+    c1 = torch.zeros((8, 16), dtype=dt, device=R.device)
+    c1.diagonal()[0:3].fill_(1.0)
+    c1.diagonal()[6:8].fill_(1.0)
+    c1[0:6, 8:14] = R.to(dt)
+    return c1, torch.eye(8, 16, dtype=dt, device=R.device)
+
+
+def _predict_a8(mu_b, mu_auv_odom, odom_pose, valid, params: SlamParams, c12=None):
     """The fleet predict's μ bookkeeping and its packed motion Jacobian:
     returns ``(mu, u_t, a8)``, a8 (B, 8, 16) with cols 0:8 = blockdiag(A6,
     I2) and cols 8:14 of rows 0:6 = R̃ = R·valid. valid=False gives an exact
-    no-op (u_t=0, A the exact identity, R̃ zero, attitude kept)."""
-    dt, dev = mu_b.dtype, mu_b.device
+    no-op (u_t=0, A the exact identity, R̃ zero, attitude kept). ``c12``
+    (``a8_consts``) is made here when not given."""
+    dt = mu_b.dtype
     v1 = valid.to(dt)[:, None]
     u_t = (odom_pose[:, 0:3] - mu_auv_odom) * v1
     att = torch.where(valid[:, None], wrap_angle(odom_pose[:, 3:6]), mu_b[:, 3:6])
     mu = torch.cat([mu_b[:, 0:3] + u_t, att, mu_b[:, 6:]], dim=1)
 
     g = _motion_jacobian(att, u_t)                                     # (B,3,3)
-    c1 = torch.zeros((8, 16), dtype=dt, device=dev)
-    c1[[0, 1, 2, 6, 7], [0, 1, 2, 6, 7]] = 1.0
-    c1[0:6, 8:14] = params.R.to(dt)
-    c2 = torch.eye(8, 16, dtype=dt, device=dev)
+    c1, c2 = a8_consts(params.R, dt) if c12 is None else c12
     a8 = torch.where(valid[:, None, None], F.pad(g, (3, 10, 0, 5)) + c1, c2)
     return mu, u_t, a8
 
 
 def _fleet_predict(state_b: SlamState, odom_pose: torch.Tensor,
                    valid: torch.Tensor, params: SlamParams,
-                   predict_sigma: bool = False):
+                   predict_sigma: bool = False, c12=None):
     """Batched ``predict`` with the odom-validity gate folded into the
     inputs (see ``_predict_a8``).
 
@@ -648,7 +677,7 @@ def _fleet_predict(state_b: SlamState, odom_pose: torch.Tensor,
     Jacobian comes back packed as a8 for the kernels to apply to what they
     read. With ``predict_sigma=True`` (no event pass this tick to carry it)
     Σ is predicted here and a8 comes back None."""
-    mu, u_t, a8 = _predict_a8(state_b.mu, state_b.mu_auv_odom, odom_pose, valid, params)
+    mu, u_t, a8 = _predict_a8(state_b.mu, state_b.mu_auv_odom, odom_pose, valid, params, c12)
     Sigma = state_b.Sigma
     if predict_sigma:
         S = state_b.Sigma
@@ -691,12 +720,73 @@ def _run_per_mission(tl, params, cfg, update_mode):
     return final, {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}
 
 
+_SENSORS = {"mbes": MBES, "fls": FLS}
+
+
+def _loop_inputs(tl, params: SlamParams, cfg: EKFSlamConfig):
+    """Every tensor a fleet tick loop reads, as a flat dict, and the event
+    sensor names: the per-tick (T, B, ...) odometry and events, the
+    parameters, the initial state, each pass's constants. A graphed replay
+    copies exactly these into its static buffers."""
+    L = cfg.max_landmarks
+    s0 = init_state(cfg, dtype=params.R.dtype, device=tl.ticks.device)
+    odom_pose_t, valid_t, names, ev_t = _fleet_inputs(tl)
+    inp = {"odom_pose": odom_pose_t, "valid": valid_t, "band0": initial_band(s0.Sigma, L)}
+    for n in names:
+        inp["z_" + n], inp["m_" + n] = ev_t[n]
+        c = pass_consts(params, cfg, _SENSORS[n])
+        inp["new_cov_" + n], inp["outlier"], inp["mh_dist_" + n] = c.new_cov, c.outlier, c.mh_dist
+    inp.update(("p_" + k, v) for k, v in params._asdict().items() if v is not None)
+    inp.update(("s0_" + k, v) for k, v in s0._asdict().items())
+    return inp, tuple(names)
+
+
+def _loop_setup(inp: dict, names: tuple):
+    """The loop's prologue on its inputs: (params, s0, {sensor name:
+    PassConsts}, a8 constants)."""
+    params = SlamParams(*(inp.get("p_" + k) for k in SlamParams._fields))
+    s0 = SlamState(*(inp["s0_" + k] for k in SlamState._fields))
+    consts = {n: PassConsts(new_cov=inp["new_cov_" + n],
+                            q_diag=torch.diagonal(_SENSORS[n].q(params)),
+                            lam=_SENSORS[n].lam(params), outlier=inp["outlier"],
+                            mh_dist=inp["mh_dist_" + n]) for n in names}
+    return params, s0, consts, a8_consts(params.R, params.R.dtype)
+
+
+def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple):
+    """``run_fleet``'s tick loop on ``_loop_inputs`` -> (final state,
+    outputs stacked (T, B, ...)). Capture-safe: nothing in it syncs with the
+    host or builds a tensor from host data."""
+    params, s0, consts, c12 = _loop_setup(inp, names)
+    T, B = inp["valid"].shape
+    L = cfg.max_landmarks
+    state = SlamState(*(x.expand((B,) + x.shape).contiguous() for x in s0))
+    band = inp["band0"].expand(B, 24, L).contiguous()
+    outs = []
+    for t in range(T):
+        st, a8 = _fleet_predict(state, inp["odom_pose"][t], inp["valid"][t], params,
+                                predict_sigma=not names, c12=c12)
+        out = {}
+        for n in names:
+            st, matched, band = da_lanes_pass(
+                st, inp["z_" + n][t], inp["m_" + n][t], params, cfg, _SENSORS[n],
+                a8=a8, band=band, consts=consts[n])
+            a8 = None
+            out["matched_" + n] = matched
+        out["mu"] = st.mu[:, 0:6]
+        out["n_active"] = st.n_active
+        outs.append(out)
+        state = st
+    return state, _stack_outputs(outs)
+
+
 def run_fleet(
     batched_timeline,
     params: SlamParams,
     cfg: EKFSlamConfig = EKFSlamConfig(),
     update_mode: str = "auto",
     device_mesh=None,
+    graph: bool = True,
 ):
     """Fleet replay of B missions (tensor-leaved batched Timeline, leaves
     (B, T, ...)) -> (final batched SlamState, outputs stacked (T, B, ...)).
@@ -706,6 +796,12 @@ def run_fleet(
     transform. Semantics are the reference's ``run_fleet`` (= vmapped
     ``run`` with full updates). No host sync inside the tick loop.
 
+    On CUDA tensors the tick loop runs as a CUDA graph cached per shape,
+    configuration, sensor set and K2 schedule (``utils.graphs``; the
+    reference runs it as one jitted ``lax.scan``); ``graph=False`` runs it
+    eagerly, launch by launch, for comparisons. CPU tensors always take the
+    eager loop on the kernels' plain versions.
+
     ``update_mode="marginal"`` is ``run_fleet_marginal`` (K1 + K4 on the
     pose-rows + band carry); ``"marginal_dense"`` and ``"kernel"`` (or its
     reference name ``"pallas"``) replay each mission through ``run`` with
@@ -714,7 +810,7 @@ def run_fleet(
     if device_mesh is not None:
         raise NotImplementedError(f"device_mesh= is {_LATER}")
     if update_mode == "marginal":
-        return run_fleet_marginal(batched_timeline, params, cfg)
+        return run_fleet_marginal(batched_timeline, params, cfg, graph=graph)
     if update_mode == "marginal_dense":
         update_mode = "marginal"
     if update_mode == "pallas":
@@ -724,32 +820,12 @@ def run_fleet(
     if update_mode not in ("auto", "full"):
         raise ValueError(f"unknown update_mode {update_mode!r}")
 
-    tl = batched_timeline
-    B, T = tl.ticks.shape[0], tl.ticks.shape[1]
-    L = cfg.max_landmarks
-    dev = tl.ticks.device
-    s0 = init_state(cfg, dtype=params.R.dtype, device=dev)
-    state = SlamState(*(x.expand((B,) + x.shape).contiguous() for x in s0))
-    band = initial_band(s0.Sigma, L).expand(B, 24, L).contiguous()
-    odom_pose_t, valid_t, names, ev_t = _fleet_inputs(tl)
-
-    outs = []
-    for t in range(T):
-        st, a8 = _fleet_predict(state, odom_pose_t[t], valid_t[t], params,
-                                predict_sigma=not names)
-        out = {}
-        for n in names:
-            z, m = ev_t[n][0][t], ev_t[n][1][t]
-            st, matched, band = da_lanes_pass(
-                st, z, m, params, cfg, MBES if n == "mbes" else FLS,
-                a8=a8, band=band)
-            a8 = None
-            out["matched_" + n] = matched
-        out["mu"] = st.mu[:, 0:6]
-        out["n_active"] = st.n_active
-        outs.append(out)
-        state = st
-    return state, _stack_outputs(outs)
+    inp, names = _loop_inputs(batched_timeline, params, cfg)
+    if graph and inp["valid"].device.type == "cuda":
+        D = 6 + 3 * cfg.max_landmarks
+        key = ("ekf_slam.run_fleet", cfg, names, D >= slam_kernels.STREAMED_MIN_D)
+        return graphs.run(key, lambda x: _full_loop(x, cfg, names), inp)
+    return _full_loop(inp, cfg, names)
 
 
 # ---------------------------------------------------------------------------
@@ -794,14 +870,14 @@ def _rows_block_fix(P1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
 
 
 def _fleet_predict_marginal(ms: MarginalFleetState, odom_pose, valid,
-                            params: SlamParams, predict_rows: bool):
+                            params: SlamParams, predict_rows: bool, c12=None):
     """``_fleet_predict`` for the marginal carry: the μ bookkeeping is the
     same; the covariance transform touches only the pose rows
     (Σ'[0:6, 6:] = A Σ[0:6, 6:], Σ'66 = A Σ66 Aᵀ + R̃; landmark blocks are
     untouched by the motion predict, ``ekf_slam_core.cpp:110-118``). With
     ``predict_rows=False`` the transform rides the kernels via the returned
     a8 and the rows come back untouched."""
-    mu, u_t, a8 = _predict_a8(ms.mu, ms.mu_auv_odom, odom_pose, valid, params)
+    mu, u_t, a8 = _predict_a8(ms.mu, ms.mu_auv_odom, odom_pose, valid, params, c12)
     rows = ms.rows
     if predict_rows:
         A8, r88 = a8[:, :, 0:8], a8[:, :, 8:16]
@@ -814,22 +890,22 @@ def _fleet_predict_marginal(ms: MarginalFleetState, odom_pose, valid,
 
 def da_lanes_pass_marginal(ms: MarginalFleetState, z_b, mask_b,
                            params: SlamParams, cfg: EKFSlamConfig,
-                           sensor: SensorSpec = None, a8=None):
+                           sensor: SensorSpec = None, a8=None,
+                           consts: PassConsts = None):
     """Fleet DA pass on the marginal carry: K1 reads Spp/Spl from the pose
     rows and Sll from the band; the update is K4
-    (``slam_kernels.sequential_update_marginal_fleet``)."""
+    (``slam_kernels.sequential_update_marginal_fleet``). ``consts``
+    (``pass_consts``) is made here when not given."""
     sensor = MBES if sensor is None else sensor
+    c = pass_consts(params, cfg, sensor) if consts is None else consts
     B = ms.mu.shape[0]
     L = cfg.max_landmarks
-    dt, dev = ms.mu.dtype, ms.mu.device
     fls = sensor.kind == "fls"
-    new_cov = torch.tensor(sensor.new_lm_cov, dtype=dt, device=dev)
     ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = slam_da_kernels.da_lanes(
         ms.mu[:, 0:6].contiguous(), ms.n_active, ms.active,
         ms.mu[:, 6:].reshape(B, L, 3).contiguous(), None,
         z_b[:, :, 0:3].contiguous(), mask_b.contiguous(),
-        torch.diagonal(sensor.q(params)), sensor.lam(params),
-        cfg.outlier_cost, sensor.mh_dist(cfg), new_cov, sensor=sensor.kind,
+        c.q_diag, c.lam, c.outlier, c.mh_dist, c.new_cov, sensor=sensor.kind,
         r_sb=params.r_fls_base if fls else None, t_sb=params.t_fls_base if fls else None,
         A=a8[:, 0:6, 0:6].contiguous() if a8 is not None else None,
         r_full=a8[:, 0:6, 8:14].contiguous() if a8 is not None else None,
@@ -839,17 +915,51 @@ def da_lanes_pass_marginal(ms: MarginalFleetState, z_b, mask_b,
         1, torch.where(add, slot, L).long(), True)[:, :L].contiguous()
     n_active = ms.n_active + add.sum(1, dtype=torch.int32)
     rows, mu, band = slam_kernels.sequential_update_marginal_fleet(
-        ms.rows, ms.mu, H_sel, SinvH, nu_sel, 6 + 3 * slot, do, add, new_cov,
+        ms.rows, ms.mu, H_sel, SinvH, nu_sel, 6 + 3 * slot, do, add, c.new_cov,
         cand, ms.band, a8)
     matched = torch.where(do, slot, torch.full_like(slot, -1))
     return ms._replace(mu=mu, rows=rows, band=band, active=active,
                        n_active=n_active), matched
 
 
+def _marginal_loop(inp: dict, cfg: EKFSlamConfig, names: tuple):
+    """``run_fleet_marginal``'s tick loop on ``_loop_inputs`` -> (final
+    MarginalFleetState, outputs stacked (T, B, ...)). Capture-safe."""
+    params, s0, consts, c12 = _loop_setup(inp, names)
+    T, B = inp["valid"].shape
+    L = cfg.max_landmarks
+    D = s0.mu.shape[0]
+    rows0 = s0.Sigma.new_zeros((8, D))
+    rows0[0:6] = s0.Sigma[0:6]
+    ms = MarginalFleetState(
+        mu=s0.mu.expand(B, D).contiguous(),
+        rows=rows0.expand(B, 8, D).contiguous(),
+        band=inp["band0"].expand(B, 24, L).contiguous(),
+        active=s0.active.expand(B, L).contiguous(),
+        n_active=s0.n_active.expand(B).contiguous(),
+        mu_auv_odom=s0.mu_auv_odom.expand(B, 3).contiguous())
+    outs = []
+    for t in range(T):
+        ms, a8 = _fleet_predict_marginal(ms, inp["odom_pose"][t], inp["valid"][t], params,
+                                         predict_rows=not names, c12=c12)
+        out = {}
+        for n in names:
+            ms, matched = da_lanes_pass_marginal(
+                ms, inp["z_" + n][t], inp["m_" + n][t], params, cfg, _SENSORS[n], a8=a8,
+                consts=consts[n])
+            a8 = None
+            out["matched_" + n] = matched
+        out["mu"] = ms.mu[:, 0:6]
+        out["n_active"] = ms.n_active
+        outs.append(out)
+    return ms, _stack_outputs(outs)
+
+
 def run_fleet_marginal(
     batched_timeline,
     params: SlamParams,
     cfg: EKFSlamConfig = EKFSlamConfig(),
+    graph: bool = True,
 ):
     """Fleet replay under the reference's marginal covariance semantics
     (the ``run_fleet`` counterpart of ``run(update_mode="marginal")``): the
@@ -857,41 +967,20 @@ def run_fleet_marginal(
     loop. Every tick: the predict's bookkeeping in PyTorch, then per event
     sensor K1 (pose-rows form) + K4; the first pass carries the predict's
     pose-row transform. Returns (final SlamState with the covariance
-    reconstructed once at the end, outputs stacked (T, B, ...))."""
-    tl = batched_timeline
-    B, T = tl.ticks.shape[0], tl.ticks.shape[1]
+    reconstructed once at the end, outputs stacked (T, B, ...)). On CUDA
+    tensors the tick loop runs as a cached CUDA graph unless ``graph=False``
+    (see ``run_fleet``)."""
+    inp, names = _loop_inputs(batched_timeline, params, cfg)
+    if graph and inp["valid"].device.type == "cuda":
+        key = ("ekf_slam.run_fleet_marginal", cfg, names)
+        ms, outs = graphs.run(key, lambda x: _marginal_loop(x, cfg, names), inp)
+    else:
+        ms, outs = _marginal_loop(inp, cfg, names)
     L = cfg.max_landmarks
-    s0 = init_state(cfg, dtype=params.R.dtype, device=tl.ticks.device)
-    D = s0.mu.shape[0]
-    rows0 = s0.Sigma.new_zeros((8, D))
-    rows0[0:6] = s0.Sigma[0:6]
-    ms = MarginalFleetState(
-        mu=s0.mu.expand(B, D).contiguous(),
-        rows=rows0.expand(B, 8, D).contiguous(),
-        band=initial_band(s0.Sigma, L).expand(B, 24, L).contiguous(),
-        active=s0.active.expand(B, L).contiguous(),
-        n_active=s0.n_active.expand(B).contiguous(),
-        mu_auv_odom=s0.mu_auv_odom.expand(B, 3).contiguous())
-    odom_pose_t, valid_t, names, ev_t = _fleet_inputs(tl)
-
-    outs = []
-    for t in range(T):
-        ms, a8 = _fleet_predict_marginal(ms, odom_pose_t[t], valid_t[t], params,
-                                         predict_rows=not names)
-        out = {}
-        for n in names:
-            z, m = ev_t[n][0][t], ev_t[n][1][t]
-            ms, matched = da_lanes_pass_marginal(
-                ms, z, m, params, cfg, MBES if n == "mbes" else FLS, a8=a8)
-            a8 = None
-            out["matched_" + n] = matched
-        out["mu"] = ms.mu[:, 0:6]
-        out["n_active"] = ms.n_active
-        outs.append(out)
     final = SlamState(mu=ms.mu, Sigma=sigma_from_rows_band(ms.rows, ms.band, L),
                       active=ms.active, n_active=ms.n_active,
                       mu_auv_odom=ms.mu_auv_odom)
-    return final, _stack_outputs(outs)
+    return final, outs
 
 
 def _segmented_affine_scan(A: torch.Tensor, R: torch.Tensor, reset: torch.Tensor):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import _build, _tensors
+from ..utils import graphs
 from ..utils.geometry import wrap_angle
 from .loc_kernels import _drot_entries, _rot_entries
 
@@ -305,29 +306,47 @@ def fleet15_tick(x, P, tick, w: Ekf15Wiring):
 fleet15_tick.launches = 0
 
 
-def run_ticks15(x0, P0, tick_t, w: Ekf15Wiring):
+def run_ticks15(x0, P0, tick_t, w: Ekf15Wiring, graph: bool = True):
     """The fleet replay's tick loop: T ticks from (x0 (B, 15), P0 (B, 15,
     15)) on tick_t (T, B, rows) -> (x (T, B, 15), p_diag (T, B, 15), final
-    P). On the card: one launch per tick, nothing between launches."""
+    P). On the card: one launch per tick, nothing between launches,
+    replayed as a CUDA graph cached per shape and wiring unless
+    ``graph=False``."""
     T, B = tick_t.shape[0], tick_t.shape[1]
     dev, f32 = x0.device, torch.float32
     _tensors.check(tick_t, "tick", (T, B, w.rows), f32, dev)
     _check(x0, P0, tick_t[0], w, "run_ticks15")
-    x_t = torch.empty((T, B, 15), dtype=f32, device=dev)
-    pd_t = torch.empty((T, B, 15), dtype=f32, device=dev)
     if dev.type == "cpu":
+        x_t = torch.empty((T, B, 15), dtype=f32, device=dev)
+        pd_t = torch.empty((T, B, 15), dtype=f32, device=dev)
         x, P = x0, P0
         for t in range(T):
             x, P = fleet15_tick_reference(x, P, tick_t[t], w)
             x_t[t], pd_t[t] = x, torch.diagonal(P, dim1=1, dim2=2)
         return x_t, pd_t, P
+    inp = dict(x0=x0, P0=P0, tick=tick_t)
+    if graph:
+        # the wiring goes into every launch by value: the capture bakes it in
+        return graphs.run(("ekf15_kernels.run_ticks15", w), lambda x: _kernel_ticks15(x, w), inp)
+    return _kernel_ticks15(inp, w)
+
+
+def _kernel_ticks15(inp: dict, w: Ekf15Wiring):
+    """``run_ticks15``' loop on the card, on its checked (contiguous)
+    inputs: one K10 launch per tick on pointer offsets into the (T, B, ...)
+    tensors. Capture-safe."""
+    tick_t = inp["tick"]
+    T, B = tick_t.shape[0], tick_t.shape[1]
+    dev, f32 = tick_t.device, torch.float32
+    x_t = torch.empty((T, B, 15), dtype=f32, device=dev)
+    pd_t = torch.empty((T, B, 15), dtype=f32, device=dev)
     w_c = _c_wiring(w)
     rows = w.rows
     Pbuf = torch.empty((2, B, 15, 15), dtype=f32, device=dev)
     buf = [Pbuf[0].data_ptr(), Pbuf[1].data_ptr()]
     # byte strides of one tick in the (T, B, ...) tensors
     step_x, step_tick = B * 15 * 4, B * rows * 4
-    x_p, P_p, tick_p = x0.data_ptr(), P0.data_ptr(), tick_t.data_ptr()
+    x_p, P_p, tick_p = inp["x0"].data_ptr(), inp["P0"].data_ptr(), tick_t.data_ptr()
     x_o, pd_o = x_t.data_ptr(), pd_t.data_ptr()
     for t in range(T):
         _run_kernel(B, w_c, rows, dev, x_p, P_p, tick_p + t * step_tick, x_o + t * step_x,
@@ -357,19 +376,20 @@ def stage_ticks15(batched_timeline, cfg):
     return torch.cat([p.to(f32) for p in parts], 2).transpose(0, 1).contiguous(), w
 
 
-def run_fleet15(batched_timeline, cfg, x0=None):
+def run_fleet15(batched_timeline, cfg, x0=None, graph: bool = True):
     """Fleet replay of the 15-state EKF, one K10 launch per tick.
 
     ``batched_timeline`` leaves are (B, T, ...) tensors (``fleet.
     batch_timelines`` of ``ekf_15state.ekf15_timeline`` outputs). Returns
     (final (x (B, 15), P (B, 15, 15)), {"x": (T, B, 15), "p_diag": (T, B,
     15)}). Sensor wiring, process noise and control shaping are read from
-    ``cfg`` as the dense ``ekf_15state.run`` reads them."""
+    ``cfg`` as the dense ``ekf_15state.run`` reads them. ``graph``: see
+    ``run_ticks15``."""
     from ..models import ekf_15state as e15
 
     B = batched_timeline.ticks.shape[0]
     tick_t, w = stage_ticks15(batched_timeline, cfg)
     s0 = e15.init_state(cfg, x0=x0, device=tick_t.device)
     x_t, pd_t, P = run_ticks15(s0.x.expand(B, 15).contiguous(),
-                               s0.P.expand(B, 15, 15).contiguous(), tick_t, w)
+                               s0.P.expand(B, 15, 15).contiguous(), tick_t, w, graph)
     return (x_t[-1], P), {"x": x_t, "p_diag": pd_t}

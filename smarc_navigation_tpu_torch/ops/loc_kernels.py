@@ -18,7 +18,8 @@ kernel's body in its operation order, over (B, N) tensors.
 
 ``run_ticks`` is the fleet replay's loop: one launch per tick, each writing
 tick t's μ, diag Σ and matches straight into preallocated (T, B, ...)
-outputs, so nothing runs between two launches.
+outputs, so nothing runs between two launches. On the card the loop runs
+as a CUDA graph cached per shape (``utils.graphs``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import math
 import torch
 
 from .. import _build, _tensors
+from ..utils import graphs
 from ..utils.geometry import wrap_angle
 
 _NEG = -3.0e38
@@ -312,31 +314,48 @@ def _run_kernel(B, M, N, mu, sig36, tick8, z4, map4, par, mu_out, sig_out, match
     fleet_tick.launches += 1
 
 
-def run_ticks(mu0, sig0, tick_t, z_t, map4, par):
+def run_ticks(mu0, sig0, tick_t, z_t, map4, par, graph: bool = True):
     """The fleet replay's tick loop: T ticks from state (mu0 (B, 6), sig0
     (B, 36)) on the packed inputs tick_t (T, B, 8), z_t (T, B, M, 4) ->
     (mu (T, B, 6), sigma_diag (T, B, 6), matches (T, B, M) int32, final Σ
-    (B, 36)). On the card: one launch per tick, nothing between launches."""
+    (B, 36)). On the card: one launch per tick, nothing between launches,
+    replayed as a cached CUDA graph unless ``graph=False``."""
     T, B, M = z_t.shape[0], z_t.shape[1], z_t.shape[2]
-    N = map4.shape[0]
     dev = mu0.device
     f32 = torch.float32
     _tensors.check(tick_t, "tick", (T, B, 8), f32, dev)
     _tensors.check(z_t, "z", (T, B, M, 4), f32, dev)
     _check_packed(mu0, sig0, tick_t[0], z_t[0], map4, par, "run_ticks")
-    mu_t = torch.empty((T, B, 6), dtype=f32, device=dev)
-    sigd_t = torch.empty((T, B, 6), dtype=f32, device=dev)
-    match_t = torch.empty((T, B, M), dtype=torch.int32, device=dev)
-    sig = torch.empty((2, B, 36), dtype=f32, device=dev)
     if dev.type == "cpu":
+        mu_t = torch.empty((T, B, 6), dtype=f32, device=dev)
+        sigd_t = torch.empty((T, B, 6), dtype=f32, device=dev)
+        match_t = torch.empty((T, B, M), dtype=torch.int32, device=dev)
         mu, s = mu0, sig0
         for t in range(T):
             mu, s, match = _unpacked_reference(mu, s, tick_t[t], z_t[t], map4, par)
             mu_t[t], match_t[t] = mu, match
             sigd_t[t] = s[:, ::7]
         return mu_t, sigd_t, match_t, s
+    inp = dict(mu0=mu0, sig0=sig0, tick=tick_t, z=z_t, map4=map4, par=par)
+    if graph:
+        return graphs.run("loc_kernels.run_ticks", _kernel_ticks, inp)
+    return _kernel_ticks(inp)
+
+
+def _kernel_ticks(inp: dict):
+    """``run_ticks``' loop on the card, on its checked (contiguous) inputs:
+    one K9 launch per tick on pointer offsets into the (T, B, ...) tensors.
+    Capture-safe."""
+    tick_t, z_t, map4, par = inp["tick"], inp["z"], inp["map4"], inp["par"]
+    T, B, M = z_t.shape[0], z_t.shape[1], z_t.shape[2]
+    N = map4.shape[0]
+    dev, f32 = tick_t.device, torch.float32
+    mu_t = torch.empty((T, B, 6), dtype=f32, device=dev)
+    sigd_t = torch.empty((T, B, 6), dtype=f32, device=dev)
+    match_t = torch.empty((T, B, M), dtype=torch.int32, device=dev)
+    sig = torch.empty((2, B, 36), dtype=f32, device=dev)
     # byte strides of one tick in each (T, B, ...) tensor (f32 and int32)
-    mu_p, sig_p = mu0.data_ptr(), sig0.data_ptr()
+    mu_p, sig_p = inp["mu0"].data_ptr(), inp["sig0"].data_ptr()
     tick_p, z_p = tick_t.data_ptr(), z_t.data_ptr()
     step_tick, step_z, step_mu, step_m = B * 8 * 4, B * M * 4 * 4, B * 6 * 4, B * M * 4
     buf = [sig[0].data_ptr(), sig[1].data_ptr()]
