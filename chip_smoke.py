@@ -15,30 +15,35 @@ Phases (any failure exits nonzero; nothing is caught):
      headline shapes (B=128 missions, L=64 landmark slots, M=8 detections,
      D=198), on the state of the real headline fleet after 50 ticks: K1
      ``da_lanes`` in MBES form (with predict and band) and in FLS form, K2
-     ``sequential_update_fleet`` (with a8, band, cand), K3
-     ``sequential_update``; discrete outputs exact, floats within 1e-4 of
-     each output's scale;
+     ``sequential_update_fleet`` (with a8, band, cand) and K3
+     ``sequential_update``, each on its default streamed schedule (phase 1
+     + K12 ``symmetric_downdate``) and bitwise equal to the one-kernel
+     schedule (Σ, μ, band), timed beside it; K12 on phase 1's factors, timed
+     beside ``torch.baddbmm`` and beside its memory path alone (K12 at one
+     factor row, ``Tensor.clone`` of Σ); discrete outputs exact, floats
+     within 1e-4 of each output's scale;
  3b. the slice-3 kernels against their plain versions at L=256, B=32
      (D=774), on the states of the reference-tuned fleet after 50 ticks in
      each covariance semantics: K1 in its pose-rows form (MBES with predict
      and band, FLS), K4 ``sequential_update_marginal_fleet`` (dim 3 and 2,
      with and without a8), K11 ``hungarian_lanes`` on the DA stage's own
-     (B, L+M, M) cost tables, K2 at D=774 (one-kernel schedule) and K12
-     ``symmetric_downdate`` on K2's phase-1 factors; K2's streamed schedule
-     against its one-kernel schedule (μ and band bitwise, Σ exactly
-     symmetric); K12 timed beside ``torch.baddbmm`` computing Σ − ½(UᵀV +
-     VᵀU) (the yardstick; the port never calls it);
+     (B, L+M, M) cost tables, K2 at D=774 (streamed schedule bitwise equal
+     to the one-kernel one: Σ, μ, band; Σ exactly symmetric) and K12
+     ``symmetric_downdate`` on K2's phase-1 factors, timed beside
+     ``torch.baddbmm`` computing Σ − ½(UᵀV + VᵀU) (the yardstick; the port
+     never calls it);
   4. the slice against its plain version: ``run_fleet`` of 8 missions over
      100 ticks on the card (kernels) and on the CPU (plain versions);
  4b. the same at L=256 for ``run_fleet(update_mode="marginal")`` and the
      full ``run_fleet`` (streamed schedule);
   5. the headline replay (``slam_fleet_timelines(combined_slam_cfg(), 60, 128)``
-     through ``run_fleet``), timed with CUDA events; K1 and K2 must each have
-     launched once per tick;
-  6. one single-mission ``step`` through K3;
+     through ``run_fleet``), timed with CUDA events; K1, K2 (phase 1) and
+     K12 must each have launched once per tick;
+  6. one single-mission ``step`` through K3 (phase 1 + K12);
  5b. the L=256 full replay (``slam_fleet_timelines(cfg256, 60, 32)``, T=601):
-     K1, K2 (phase 1) and K12 once per tick; then the one-kernel K2
-     schedule and the streamed one over the same first ticks;
+     K1, K2 (phase 1) and K12 once per tick; then the streamed and the
+     one-kernel K2 schedule over the same first ticks, each on its own graph
+     key, bitwise equal;
  5c. the L=256 marginal replay on the same timeline: K1 and K4 once per tick;
   7. each PF kernel against its plain version on the card at N = 2^20, on
      the 60 s PF mission's bank and tick 0-11 parameters: the generator's
@@ -58,7 +63,7 @@ Phases (any failure exits nonzero; nothing is caught):
      launched once per segment and K7 once per GPS update; then the per-tick
      path (``segmented=False``), K6 once per tick;
  10. the combined mission ``run_combined`` on ``combined_workload(cfg, 60)``,
-     timed; K1/K2 once per event tick, K5/K7 as in phase 9;
+     timed; K1/K2/K12 once per event tick, K5/K7 as in phase 9;
  11. K9 ``fleet_tick`` against its plain version at B=64 and B=512 (N=64 map
      slots, M=8 detections), on the state of the benchmark's localization
      fleet at its first tick from T_WARM on that brings detections, and
@@ -96,9 +101,13 @@ replay and the eager call; the timed replay is a cache hit, and the
 profiled one after it gives each path kernel's share of it and the card's
 busy share (all kernels' device time over the replay time).
 Every kernel's ``ms`` is its device time from ``torch.profiler`` (the
-CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); the
-back-to-back wall time per wrapper call is printed beside it, and
-``plain_ms`` is the plain version's back-to-back time on the card. The
+CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); K2's and
+K3's are their streamed path's, phase 1 + K12, with the one-kernel
+schedule's beside them, and K12's line holds its L=64 and L=256 numbers;
+the back-to-back wall time per wrapper call is printed beside it, and
+``plain_ms`` is the plain version's back-to-back time on the card;
+``library_ms`` (K12's only: ``torch.baddbmm``) is the device time of all
+the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
 5c, 9, 9b, 10, 14 and 15) and read just after it (phase 5's after phase 6). K8 has
 no caller on the single-device path (its TPU callers are the
@@ -160,34 +169,59 @@ def wall_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def kernel_us(fn, n, kernel, launches):
-    """(mean device µs per launch, launches recorded) of the CUDA kernel
-    whose name contains ``kernel`` over n calls of fn() that launch it
-    ``launches`` times in all, from torch.profiler's CUPTI trace."""
+def path_ms(fn, n, kernels):
+    """{name fragment: mean device ms per launch} of the CUDA kernels of
+    ``kernels``, each launched once per call of fn(), over n calls (after
+    one warm-up), from one torch.profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key and e.self_device_time_total > 0:
-            total_us += e.self_device_time_total
-            count += e.count
-    if not 1 <= count <= launches:   # the trace may drop a record; it never invents one
-        raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {launches}")
-    return total_us / count, count
+    out = {}
+    for k in kernels:
+        total_us, count = 0.0, 0
+        for e in prof.key_averages():
+            if k in e.key and e.self_device_time_total > 0:
+                total_us += e.self_device_time_total
+                count += e.count
+        if not 1 <= count <= n:   # the trace may drop a record; it never invents one
+            raise AssertionError(f"profiler saw {count} launches of {k}, expected {n}")
+        out[k] = total_us / count / 1e3
+    return out
+
+
+def call_device_ms(fn, n):
+    """Mean device time (ms) of all the work one call of fn() puts on the
+    card (every kernel and copy it launches), over n calls (after one
+    warm-up), from one torch.profiler trace: a library call's device time,
+    on the clock of ``device_ms``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("profiler saw no device time")
+    return total_us / n / 1e3
 
 
 def device_ms(fn, n, kernel):
     """Mean device time (ms) of the CUDA kernel whose name contains
     ``kernel`` over n calls of fn() (after one warm-up), averaged over the
     launches the trace recorded."""
-    fn()
-    return kernel_us(fn, n, kernel, n)[0] / 1e3
+    return path_ms(fn, n, (kernel,))[kernel]
 
 
 def nbytes(*tensors) -> int:
@@ -687,9 +721,10 @@ def pf_main_paths(dev, cfg, params, counters):
         generator=torch.Generator(device=dev).manual_seed(0)))
     cb_launch = {f.__name__: f.launches for f in counters + pf_counters}
     if (cb_launch["da_lanes"] != n_ev or cb_launch["sequential_update_fleet"] != n_ev
+            or cb_launch["symmetric_downdate"] != n_ev
             or cb_launch["predict_call_multi"] != n_seg
             or cb_launch["expand_gather_call"] != n_upd):
-        raise AssertionError(f"combined: launches {cb_launch}, expected K1/K2 {n_ev} "
+        raise AssertionError(f"combined: launches {cb_launch}, expected K1/K2/K12 {n_ev} "
                              f"(event ticks), K5 {n_seg}, K7 {n_upd}")
     if not bool(torch.isfinite(val)):
         raise AssertionError("combined: non-finite result")
@@ -749,6 +784,47 @@ def fls_params(S, cfg, dev):
     tf = Transform(rot=rotmat_from_rpy(torch.tensor([0.0, 0.08, 0.0], device=dev)),
                    trans=torch.tensor([0.4, 0.0, -0.2], device=dev))
     return S.make_params(cfg, tf_base_fls=tf, device=dev)
+
+
+def k12_phase(Sigma, U, V, P1, act, what):
+    """K12 on phase 1's own factors against its plain version (within
+    tolerance, exactly symmetric); its device time, back-to-back time per
+    call, the plain version's time, the bound, and ``torch.baddbmm``
+    computing Σ − ½(UᵀV + VᵀU) (the yardstick; the port never calls it;
+    its device time, all its kernels, on K12's profiler clock).
+    Beside them, what its memory path alone costs: K12 on the first factor
+    row only (the same bytes of Σ, 1/K of the FMAs) and a contiguous copy of
+    Σ (``Tensor.clone``: the same bytes of Σ in and out, streamed)."""
+    import torch
+
+    from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+
+    s12 = K2.symmetric_downdate(Sigma, U, V, P1, act)
+    torch.cuda.synchronize()
+    err = check(max_err(s12, K2.symmetric_downdate_reference(Sigma, U, V, P1, act)),
+                f"K12 {what}")
+    if not torch.equal(s12, s12.transpose(1, 2)):
+        raise AssertionError(f"K12 {what}: Sigma not exactly symmetric")
+
+    def k12():
+        return K2.symmetric_downdate(Sigma, U, V, P1, act)
+
+    UV, VU = torch.cat([U, V], 1).transpose(1, 2).contiguous(), torch.cat([V, U], 1).contiguous()
+    B, D, K = Sigma.shape[0], Sigma.shape[1], U.shape[1]
+    U1, V1 = U[:, :1].contiguous(), V[:, :1].contiguous()
+    res = dict(err=err, ms=device_ms(k12, 30, "downdate_kernel"), wall_ms=wall_ms(k12, 50),
+               plain_ms=wall_ms(lambda: K2.symmetric_downdate_reference(Sigma, U, V, P1, act), 10),
+               library_ms=call_device_ms(lambda: torch.baddbmm(Sigma, UV, VU, alpha=-0.5), 30),
+               bound=bound(nbytes(Sigma, U, V, P1, act, s12), 2 * K * D * D * B),
+               one_row_ms=device_ms(lambda: K2.symmetric_downdate(Sigma, U1, V1, P1, act), 30,
+                                    "downdate_kernel"),
+               copy_ms=device_ms(lambda: Sigma.clone(), 30, "Memcpy"))
+    print(f"K12 {what} B={B} D={D} K={K}: max err {err:.3e}, exactly symmetric; kernel "
+          f"{res['ms']:.4f} ms device ({res['wall_ms']:.4f} ms per call back to back), plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms ({res['bound'][1]}), "
+          f"torch.baddbmm {res['library_ms']:.4f} ms; memory path: K12 at K=1 "
+          f"{res['one_row_ms']:.4f} ms, Sigma.clone() {res['copy_ms']:.4f} ms", flush=True)
+    return res
 
 
 def slam256_kernels_phase(dev, cfg, params, tl):
@@ -863,52 +939,32 @@ def slam256_kernels_phase(dev, cfg, params, tl):
     one = K2.sequential_update_fleet(*k2_args, streamed=False)
     strm = K2.sequential_update_fleet(*k2_args, streamed=True)
     torch.cuda.synchronize()
-    if not (torch.equal(one[1], strm[1]) and torch.equal(one[2], strm[2])):
-        raise AssertionError("K2 streamed: mu or band differ from the one-kernel schedule")
-    for x, name in ((one[0], "one-kernel"), (strm[0], "streamed")):
-        if not torch.equal(x, x.transpose(1, 2)):
-            raise AssertionError(f"K2 {name} at D={D}: Sigma not exactly symmetric")
-    e_sched = check(max_err(strm[0], one[0]), "K2 streamed vs one-kernel Sigma")
-    bitwise = torch.equal(strm[0], one[0])
+    for g, o, name in zip(strm, one, ("Sigma", "mu", "band")):
+        if not bitwise(g, o):
+            raise AssertionError(f"K2 at D={D}: streamed {name} differs from the one-kernel schedule's")
+    if not torch.equal(strm[0], strm[0].transpose(1, 2)):
+        raise AssertionError(f"K2 at D={D}: Sigma not exactly symmetric")
     want2 = K2.sequential_update_fleet_reference(*k2_args, streamed=False)
-    e2 = max(check(max_err(one[0], want2[0]), "K2 D=774 Sigma"),
-             check(max_err(one[1], want2[1]), "K2 D=774 mu"),
-             check(max_err(band_entries(one[2]), band_entries(want2[2])), "K2 D=774 band"))
-    mu1, band1, P1, U, V, act = K2.phase1(*k2_args)
-    s12 = K2.symmetric_downdate(st_p.Sigma, U, V, P1, act)
-    torch.cuda.synchronize()
-    w12 = K2.symmetric_downdate_reference(st_p.Sigma, U, V, P1, act)
-    e12 = check(max_err(s12, w12), "K12")
-    if not torch.equal(s12, s12.transpose(1, 2)):
-        raise AssertionError("K12: Sigma not exactly symmetric")
-
-    def k12():
-        return K2.symmetric_downdate(st_p.Sigma, U, V, P1, act)
-
-    UV, VU = torch.cat([U, V], 1).transpose(1, 2).contiguous(), torch.cat([V, U], 1).contiguous()
-    K = U.shape[1]
-    res["K12"] = dict(err=max(e12, e_sched), ms=device_ms(k12, 30, "downdate_kernel"),
-                      wall_ms=wall_ms(k12, 50),
-                      plain_ms=wall_ms(lambda: K2.symmetric_downdate_reference(
-                          st_p.Sigma, U, V, P1, act), 10),
-                      library_ms=wall_ms(lambda: torch.baddbmm(st_p.Sigma, UV, VU, alpha=-0.5), 30),
-                      bound=bound(nbytes(st_p.Sigma, U, V, P1, act, s12), 2 * K * D * D * B))
+    e2 = max(check(max_err(strm[0], want2[0]), "K2 D=774 Sigma"),
+             check(max_err(strm[1], want2[1]), "K2 D=774 mu"),
+             check(max_err(band_entries(strm[2]), band_entries(want2[2])), "K2 D=774 band"))
+    _, _, P1, U, V, act = K2.phase1(*k2_args)
+    res["K12"] = k12_phase(st_p.Sigma, U, V, P1, act, f"L={L}")
     res["K2_774"] = dict(err=e2, ms=device_ms(lambda: K2.sequential_update_fleet(
         *k2_args, streamed=False), 5, "update_kernel"),
-        phase1_ms=device_ms(lambda: K2.phase1(*k2_args), 30, "update_kernel"),
+        phase1_ms=device_ms(lambda: K2.phase1(*k2_args), 30, "phase1_kernel"),
         bound=bound(nbytes(*k2_args, *one), k2_flops(B, D, M, 3, True)))
-    for k in ("K4", "K11", "K12"):
+    for k in ("K4", "K11"):
         v = res[k]
         print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms "
               f"per call back to back), plain {v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms "
-              f"({v['bound'][1]})" + (f", torch.baddbmm {v['library_ms']:.4f} ms"
-                                      if "library_ms" in v else ""), flush=True)
+              f"({v['bound'][1]})", flush=True)
     v = res["K2_774"]
-    print(f"K2 at D={D} B={B}: one-kernel schedule {v['ms']:.4f} ms device (max err vs plain "
-          f"{v['err']:.3e}, bound {v['bound'][0]:.4f} ms, {v['bound'][1]}); streamed schedule "
-          f"phase 1 {v['phase1_ms']:.4f} ms + K12 {res['K12']['ms']:.4f} ms; streamed == "
-          f"one-kernel: mu and band bitwise, Sigma {'bitwise' if bitwise else f'max err {e_sched:.3e}'}"
-          f", both exactly symmetric ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"K2 at D={D} B={B}: streamed schedule phase 1 {v['phase1_ms']:.4f} ms + K12 "
+          f"{res['K12']['ms']:.4f} ms = {v['phase1_ms'] + res['K12']['ms']:.4f} ms device; "
+          f"one-kernel schedule {v['ms']:.4f} ms (max err vs plain {v['err']:.3e}, bound "
+          f"{v['bound'][0]:.4f} ms, {v['bound'][1]}); streamed == one-kernel: Sigma, mu and band "
+          f"bitwise, Sigma exactly symmetric ({time.perf_counter() - t0:.1f} s)", flush=True)
     return res
 
 
@@ -972,29 +1028,32 @@ def slam256_replays(dev, cfg, params, tl, counters):
               f"host), {ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} steps/s; n_active "
               f"min {int(n_act.min())} mean {float(n_act.float().mean()):.1f} max "
               f"{int(n_act.max())}; launches {n}", flush=True)
-        kernels = ({"da_kernel": T, "update_kernel": T, "downdate_kernel": T} if mode == "full"
+        kernels = ({"da_kernel": T, "phase1_kernel": T, "downdate_kernel": T} if mode == "full"
                    else {"da_kernel": T, "marginal_kernel": T})
         graph[mode]["share"] = device_share(
             lambda: S.run_fleet(tl, params, cfg, update_mode=mode), kernels, ms,
             f"L=256 {mode} replay (graphed)")
 
-    # the two K2 schedules of the full replay over the same first ticks
+    # the two K2 schedules of the full replay over the same first ticks, each
+    # the first call of its own graph key (eager warm-up + capture): the key
+    # carries the schedule, so the one-kernel call captures anew and runs no K12
+    from smarc_navigation_tpu_torch.utils import graphs
+
     head = tl.map(lambda x: x[:, :N_ONE_KERNEL])
-    (_, out_s), ms_s, _ = timed(lambda: S.run_fleet(head, params, cfg))
-    saved = K2.STREAMED_MIN_D
-    K2.STREAMED_MIN_D = 1 << 30
-    try:
-        (_, out_o), ms_o, _ = timed(lambda: S.run_fleet(head, params, cfg))
-    finally:
-        K2.STREAMED_MIN_D = saved
-    for key in ("matched_mbes", "n_active"):
-        if not torch.equal(out_s[key], out_o[key]):
-            raise AssertionError(f"L=256 schedules: {key} differs between streamed and one-kernel")
-    d = float((out_s["mu"] - out_o["mu"]).abs().max())
-    print(f"L=256 full replay, first {N_ONE_KERNEL} ticks: streamed schedule "
-          f"{ms_s * 1e3 / N_ONE_KERNEL:.1f} us/tick, one-kernel schedule "
-          f"{ms_o * 1e3 / N_ONE_KERNEL:.1f} us/tick; associations equal, max pose difference "
-          f"{d:.3e}", flush=True)
+    runs = {}
+    for name, streamed in (("streamed", True), ("one-kernel", False)):
+        n_cap, K2.symmetric_downdate.launches = graphs.captures, 0
+        runs[name] = timed(lambda: S.run_fleet(head, params, cfg, streamed=streamed))
+        want_k12 = N_ONE_KERNEL if name == "streamed" else 0
+        if graphs.captures != n_cap + 1 or K2.symmetric_downdate.launches != want_k12:
+            raise AssertionError(f"L=256 {name} schedule: {graphs.captures - n_cap} captures, "
+                                 f"{K2.symmetric_downdate.launches} K12 launches")
+    n_out = assert_bitwise(runs["streamed"][0], runs["one-kernel"][0],
+                           "L=256 full replay, streamed vs one-kernel schedule")
+    print(f"L=256 full replay, first {N_ONE_KERNEL} ticks (first call: eager + capture): streamed "
+          f"schedule {runs['streamed'][1] * 1e3 / N_ONE_KERNEL:.1f} us/tick, one-kernel schedule "
+          f"{runs['one-kernel'][1] * 1e3 / N_ONE_KERNEL:.1f} us/tick; all {n_out} outputs bitwise "
+          f"equal; one capture each", flush=True)
     return launches, graph
 
 
@@ -1378,8 +1437,12 @@ def main():
     lm_ix = 6 + 3 * slot
     k2_args = (st_p.Sigma, st_p.mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_cov,
                cand, a8, band)
-    got2 = K2.sequential_update_fleet(*k2_args)
+    got2 = K2.sequential_update_fleet(*k2_args)                   # streamed: phase 1 + K12
+    one2 = K2.sequential_update_fleet(*k2_args, streamed=False)   # the one-kernel schedule
     torch.cuda.synchronize()
+    for g, o, name in zip(got2, one2, ("Sigma", "mu", "band")):
+        if not bitwise(g, o):
+            raise AssertionError(f"K2 at L={L}: streamed {name} differs from the one-kernel schedule's")
     want2 = K2.sequential_update_fleet_reference(*k2_args)
     errs = [max_err(got2[0], want2[0]), max_err(got2[1], want2[1]),
             max_err(band_entries(got2[2]), band_entries(want2[2]))]
@@ -1393,21 +1456,30 @@ def main():
     def k2():
         return K2.sequential_update_fleet(*k2_args)
 
-    k2_ms, k2_wall = device_ms(k2, 30, "update_kernel"), wall_ms(k2, 50)
+    k2_t = path_ms(k2, 30, ("phase1_kernel", "downdate_kernel"))
+    k2_ms, k2_wall = k2_t["phase1_kernel"] + k2_t["downdate_kernel"], wall_ms(k2, 50)
+    k2_one_ms = device_ms(lambda: K2.sequential_update_fleet(*k2_args, streamed=False), 30,
+                          "update_kernel")
     k2_plain_ms = wall_ms(lambda: K2.sequential_update_fleet_reference(*k2_args), 10)
     k2_bound = bound(nbytes(*k2_args, *got2), k2_flops(B, 6 + 3 * L, M, 3, True))
     print(f"K2 sequential_update_fleet: max err Sigma {errs[0][0]:.3e} mu {errs[1][0]:.3e} "
-          f"band {errs[2][0]:.3e}; kernel {k2_ms:.4f} ms device ({k2_wall:.4f} ms per call "
-          f"back to back), plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms "
-          f"({k2_bound[1]})", flush=True)
+          f"band {errs[2][0]:.3e}; streamed schedule phase 1 {k2_t['phase1_kernel']:.4f} + K12 "
+          f"{k2_t['downdate_kernel']:.4f} = {k2_ms:.4f} ms device ({k2_wall:.4f} ms per call back "
+          f"to back), one-kernel schedule {k2_one_ms:.4f} ms, plain {k2_plain_ms:.3f} ms, bound "
+          f"{k2_bound[0]:.4f} ms ({k2_bound[1]}); streamed == one-kernel bitwise", flush=True)
+    _, _, P1, U, V, act = K2.phase1(*k2_args)
+    k12_64 = k12_phase(st_p.Sigma, U, V, P1, act, f"L={L}")
 
     # K3 on the mission with the most updates (Σ predicted by the plain path)
     b = int(do.sum(1).argmax())
     st_pp, _ = S._fleet_predict(st, pose_t, valid_t, params, predict_sigma=True)
     k3_args = (st_pp.Sigma[b].contiguous(), st_pp.mu[b].contiguous(), H_sel[b],
                SinvH[b], nu_sel[b], lm_ix[b], do[b], add[b], new_cov)
-    got3 = K2.sequential_update(*k3_args)
+    got3 = K2.sequential_update(*k3_args)                          # streamed: phase 1 + K12
+    one3 = K2.sequential_update_fleet(*(x[None] for x in k3_args[:8]), new_cov, streamed=False)
     torch.cuda.synchronize()
+    if not (bitwise(got3[0], one3[0][0]) and bitwise(got3[1], one3[1][0])):
+        raise AssertionError("K3: streamed Sigma or mu differs from the one-kernel schedule's")
     want3 = K2.sequential_update_reference(*k3_args)
     errs3 = [max_err(got3[0], want3[0]), max_err(got3[1], want3[1])]
     for (err, tol), name in zip(errs3, ["Sigma", "mu"]):
@@ -1418,13 +1490,17 @@ def main():
     def k3():
         return K2.sequential_update(*k3_args)
 
-    k3_ms, k3_wall = device_ms(k3, 30, "update_kernel"), wall_ms(k3, 50)
+    k3_t = path_ms(k3, 30, ("phase1_kernel", "downdate_kernel"))
+    k3_ms, k3_wall = k3_t["phase1_kernel"] + k3_t["downdate_kernel"], wall_ms(k3, 50)
+    k3_one_ms = device_ms(lambda: K2.sequential_update_fleet(
+        *(x[None] for x in k3_args[:8]), new_cov, streamed=False), 30, "update_kernel")
     k3_plain_ms = wall_ms(lambda: K2.sequential_update_reference(*k3_args), 10)
     k3_bound = bound(nbytes(*k3_args, *got3), k2_flops(1, 6 + 3 * L, M, 3, False))
     print(f"K3 sequential_update (mission {b}, {int(do[b].sum())} updates): max err "
-          f"{k3_err:.3e}; kernel {k3_ms:.4f} ms device ({k3_wall:.4f} ms per call back to "
-          f"back), plain {k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]})",
-          flush=True)
+          f"{k3_err:.3e}; phase 1 {k3_t['phase1_kernel']:.4f} + K12 {k3_t['downdate_kernel']:.4f} "
+          f"= {k3_ms:.4f} ms device ({k3_wall:.4f} ms per call back to back), one-kernel schedule "
+          f"{k3_one_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms "
+          f"({k3_bound[1]}); streamed == one-kernel bitwise", flush=True)
 
     # --- 3b. the slice-3 kernels at L=256 ---------------------------------------
     k256 = slam256_kernels_phase(dev, cfg256, params256, tl256)
@@ -1457,10 +1533,11 @@ def main():
     for f in counters:
         f.launches = 0
     (final, out), ms, wall = timed(lambda: S.run_fleet(tl, params, cfg))
-    if K1.da_lanes.launches != T or K2.sequential_update_fleet.launches != T:
+    if (K1.da_lanes.launches != T or K2.sequential_update_fleet.launches != T
+            or K2.symmetric_downdate.launches != T):
         raise AssertionError(
-            f"headline: {K1.da_lanes.launches} DA and "
-            f"{K2.sequential_update_fleet.launches} update launches for {T} ticks")
+            f"headline: {K1.da_lanes.launches} DA, {K2.sequential_update_fleet.launches} "
+            f"update and {K2.symmetric_downdate.launches} downdate launches for {T} ticks")
     for name, x in (("mu", final.mu), ("Sigma", final.Sigma), ("out mu", out["mu"])):
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"headline: non-finite {name}")
@@ -1492,8 +1569,8 @@ def main():
     print(f"step (mission 0, tick {k}): matched {o_k['matched_mbes'].tolist()}, "
           f"mu err vs dense {err:.3e}; launches {launches}", flush=True)
     g_head["share"] = device_share(lambda: S.run_fleet(tl, params, cfg),
-                                   {"da_kernel": T, "update_kernel": T}, ms,
-                                   "headline run_fleet (graphed)")
+                                   {"da_kernel": T, "phase1_kernel": T, "downdate_kernel": T},
+                                   ms, "headline run_fleet (graphed)")
 
     # --- 5b-5c. the L=256 replays in both semantics -----------------------------
     l256, g256 = slam256_replays(dev, cfg256, params256, tl256, counters)
@@ -1504,20 +1581,28 @@ def main():
     # --- 11-15. the localization and 15-state fleets ----------------------------
     k9, k10, (fl_launch, g_filters) = filter_fleets(dev)
 
-    def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None):
+    def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None, **extra):
         return dict(name=name, route="cuda", source=f"smarc_navigation_tpu_torch/csrc/{source}",
                     replaces=f"smarc_navigation_tpu/ops/{replaces}", launches=n,
                     max_abs_err=err, ms=ms_, plain_ms=plain, bound_ms=bnd[0], bound_by=bnd[1],
-                    library_ms=library)
+                    library_ms=library, **extra)
+
+    k12_256 = k256["K12"]
 
     kernels = [
         entry("da_lanes", "slam_da.cu", "slam_da_kernels.py:581", launches["da_lanes"],
               max(k1_err, k1f_err, k256["K1_pose_rows"]["err"]), k1_ms, k1_plain_ms, k1_bound),
+        # K2 and K3: the streamed path's device time, phase 1 + K12
         entry("sequential_update_fleet", "slam_update.cu", "slam_kernels.py:791",
               launches["sequential_update_fleet"], max(k2_err, k256["K2_774"]["err"]), k2_ms,
-              k2_plain_ms, k2_bound),
+              k2_plain_ms, k2_bound, phase1_ms=k2_t["phase1_kernel"],
+              downdate_ms=k2_t["downdate_kernel"], one_kernel_ms=k2_one_ms,
+              D774=dict(phase1_ms=k256["K2_774"]["phase1_ms"], downdate_ms=k12_256["ms"],
+                        one_kernel_ms=k256["K2_774"]["ms"], bound_ms=k256["K2_774"]["bound"][0])),
         entry("sequential_update", "slam_update.cu", "slam_kernels.py:213",
-              launches["sequential_update"], k3_err, k3_ms, k3_plain_ms, k3_bound),
+              launches["sequential_update"], k3_err, k3_ms, k3_plain_ms, k3_bound,
+              phase1_ms=k3_t["phase1_kernel"], downdate_ms=k3_t["downdate_kernel"],
+              one_kernel_ms=k3_one_ms),
         entry("sequential_update_marginal_fleet", "slam_marginal.cu", "slam_kernels.py:1124",
               l256["marginal"]["sequential_update_marginal_fleet"], k256["K4"]["err"],
               k256["K4"]["ms"], k256["K4"]["plain_ms"], k256["K4"]["bound"]),
@@ -1532,9 +1617,16 @@ def main():
         entry("hungarian_lanes", "slam_da.cu", "slam_da_kernels.py:616",
               l256["full"]["hungarian_lanes"], k256["K11"]["err"], k256["K11"]["ms"],
               k256["K11"]["plain_ms"], k256["K11"]["bound"]),
+        # K12 at the L=64 headline (launches: phases 5-6), and at L=256
         entry("symmetric_downdate", "slam_downdate.cu", "slam_kernels.py:807",
-              l256["full"]["symmetric_downdate"], k256["K12"]["err"], k256["K12"]["ms"],
-              k256["K12"]["plain_ms"], k256["K12"]["bound"], k256["K12"]["library_ms"]),
+              launches["symmetric_downdate"], max(k12_64["err"], k12_256["err"]), k12_64["ms"],
+              k12_64["plain_ms"], k12_64["bound"], k12_64["library_ms"],
+              one_row_ms=k12_64["one_row_ms"], copy_ms=k12_64["copy_ms"],
+              L256=dict(launches=l256["full"]["symmetric_downdate"], max_abs_err=k12_256["err"],
+                        ms=k12_256["ms"], plain_ms=k12_256["plain_ms"],
+                        bound_ms=k12_256["bound"][0], bound_by=k12_256["bound"][1],
+                        library_ms=k12_256["library_ms"], one_row_ms=k12_256["one_row_ms"],
+                        copy_ms=k12_256["copy_ms"])),
         # K9 at the loc-fleet64 replay's shape; K10 in the local wiring of
         # the ekf15-fleet64 replay (its dual replay launches it 2T times)
         entry("fleet_tick", "loc_tick.cu", "loc_kernels.py:326", fl_launch["loc64"],

@@ -8,11 +8,11 @@ in the reference; see its module docstring for the mapping onto the ROS
 and shapes. The fleet replay ``run_fleet`` is a Python loop over ticks whose
 every event pass runs the data-association kernel (K1,
 ``ops.slam_da_kernels.da_lanes``) and the sequential-update kernel (K2,
-``ops.slam_kernels.sequential_update_fleet``; at D >= 512 its streamed
-schedule, phase 1 + the tiled downdate K12); ``step``'s kernel branch runs
-K3 (``ops.slam_kernels.sequential_update``). ``run_fleet_compact`` runs the
-same event pass on event ticks only, with the predicts in between composed
-beforehand. ``run_fleet(update_mode="marginal")`` is the reference's own
+``ops.slam_kernels.sequential_update_fleet``, on its streamed schedule:
+phase 1 + the tiled downdate K12); ``step``'s kernel branch runs K3
+(``ops.slam_kernels.sequential_update``, on the same schedule).
+``run_fleet_compact`` runs the same event pass on event ticks only, with
+the predicts in between composed beforehand. ``run_fleet(update_mode="marginal")`` is the reference's own
 9×9 marginal writeback on a pose-rows + band carry (``run_fleet_marginal``:
 K1 in its pose-rows form, then K4,
 ``ops.slam_kernels.sequential_update_marginal_fleet``). Each wrapper
@@ -599,7 +599,7 @@ def pass_consts(params: SlamParams, cfg: EKFSlamConfig, sensor: SensorSpec) -> P
 
 def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
                   cfg: EKFSlamConfig, sensor: SensorSpec = None,
-                  a8=None, band=None, consts: PassConsts = None):
+                  a8=None, band=None, consts: PassConsts = None, streamed: bool = True):
     """Fleet DA pass (MBES or FLS): DA kernel (K1) + fleet update kernel
     (K2). state_b is a batched SlamState; z_b (B, M, 3), mask_b (B, M).
 
@@ -607,7 +607,8 @@ def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
     (pre-predict) covariance and both kernels apply the motion predict to
     what they read. With ``band`` (B, 24, L) given, K1 reads the landmark
     block diagonal from it and K2 returns the new band as a third element.
-    ``consts`` (``pass_consts``) is made here when not given."""
+    ``consts`` (``pass_consts``) is made here when not given; ``streamed``
+    is K2's schedule (``streamed=False``: the one-kernel schedule)."""
     sensor = MBES if sensor is None else sensor
     c = pass_consts(params, cfg, sensor) if consts is None else consts
     B = state_b.mu.shape[0]
@@ -629,7 +630,7 @@ def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
     n_active = state_b.n_active + add.sum(1, dtype=torch.int32)
     upd = slam_kernels.sequential_update_fleet(
         state_b.Sigma, state_b.mu, H_sel, SinvH, nu_sel, lm_ix, do, add,
-        c.new_cov, cand, a8, band)
+        c.new_cov, cand, a8, band, streamed=streamed)
     matched = torch.where(do, slot, torch.full_like(slot, -1))
     new_state = SlamState(mu=upd[1], Sigma=upd[0], active=active,
                           n_active=n_active, mu_auv_odom=state_b.mu_auv_odom)
@@ -753,10 +754,10 @@ def _loop_setup(inp: dict, names: tuple):
     return params, s0, consts, a8_consts(params.R, params.R.dtype)
 
 
-def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple):
+def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple, streamed: bool = True):
     """``run_fleet``'s tick loop on ``_loop_inputs`` -> (final state,
-    outputs stacked (T, B, ...)). Capture-safe: nothing in it syncs with the
-    host or builds a tensor from host data."""
+    outputs stacked (T, B, ...)), K2 on the given schedule. Capture-safe:
+    nothing in it syncs with the host or builds a tensor from host data."""
     params, s0, consts, c12 = _loop_setup(inp, names)
     T, B = inp["valid"].shape
     L = cfg.max_landmarks
@@ -770,7 +771,7 @@ def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple):
         for n in names:
             st, matched, band = da_lanes_pass(
                 st, inp["z_" + n][t], inp["m_" + n][t], params, cfg, _SENSORS[n],
-                a8=a8, band=band, consts=consts[n])
+                a8=a8, band=band, consts=consts[n], streamed=streamed)
             a8 = None
             out["matched_" + n] = matched
         out["mu"] = st.mu[:, 0:6]
@@ -787,6 +788,7 @@ def run_fleet(
     update_mode: str = "auto",
     device_mesh=None,
     graph: bool = True,
+    streamed: bool = True,
 ):
     """Fleet replay of B missions (tensor-leaved batched Timeline, leaves
     (B, T, ...)) -> (final batched SlamState, outputs stacked (T, B, ...)).
@@ -800,7 +802,9 @@ def run_fleet(
     configuration, sensor set and K2 schedule (``utils.graphs``; the
     reference runs it as one jitted ``lax.scan``); ``graph=False`` runs it
     eagerly, launch by launch, for comparisons. CPU tensors always take the
-    eager loop on the kernels' plain versions.
+    eager loop on the kernels' plain versions. ``streamed=False`` runs K2's
+    one-kernel schedule instead of phase 1 + K12 (the same bits on the
+    card; kept for comparisons).
 
     ``update_mode="marginal"`` is ``run_fleet_marginal`` (K1 + K4 on the
     pose-rows + band carry); ``"marginal_dense"`` and ``"kernel"`` (or its
@@ -822,10 +826,9 @@ def run_fleet(
 
     inp, names = _loop_inputs(batched_timeline, params, cfg)
     if graph and inp["valid"].device.type == "cuda":
-        D = 6 + 3 * cfg.max_landmarks
-        key = ("ekf_slam.run_fleet", cfg, names, D >= slam_kernels.STREAMED_MIN_D)
-        return graphs.run(key, lambda x: _full_loop(x, cfg, names), inp)
-    return _full_loop(inp, cfg, names)
+        key = ("ekf_slam.run_fleet", cfg, names, streamed)
+        return graphs.run(key, lambda x: _full_loop(x, cfg, names, streamed), inp)
+    return _full_loop(inp, cfg, names, streamed)
 
 
 # ---------------------------------------------------------------------------

@@ -2,15 +2,18 @@
 marginal-writeback counterpart.
 
 ``sequential_update_fleet`` (K2) and ``sequential_update`` (K3) launch the
-CUDA kernel ``csrc/slam_update.cu`` for CUDA tensors and take their plain
-PyTorch versions for CPU tensors. They replace the TPU kernels of
+CUDA kernels of ``csrc/slam_update.cu`` for CUDA tensors and take their
+plain PyTorch versions for CPU tensors. They replace the TPU kernels of
 ``smarc_navigation_tpu/ops/slam_kernels.py`` of the same names and keep
 their signatures; K2 drops the TPU-only options ``tiled_ep`` (a VMEM layout
-of the same kernel) and ``mb`` (the VMEM mission block). K3 is the kernel at
-B=1 with no predict, no landmark-position init and no band. K2's
-``streamed`` schedule runs the kernel's phase 1 (factors, μ, band) and then
-``symmetric_downdate`` (K12, ``csrc/slam_downdate.cu``: the downdate over a
-grid of tile pairs), which replaces the TPU kernel's phase 2.
+of the same kernel) and ``mb`` (the VMEM mission block). K3 is K2 at B=1
+with no predict, no landmark-position init and no band. Both take the
+streamed schedule by default, at every state size: phase 1 (factors, μ,
+band, over a grid of column tiles) and then ``symmetric_downdate`` (K12,
+``csrc/slam_downdate.cu``: the downdate over tiles), which replaces the TPU
+kernel's phase 2. ``streamed=False`` runs the one-kernel schedule (one block
+per mission does the downdate too), kept as the yardstick: the two give the
+same bits on the card.
 
 ``sequential_update_marginal_fleet`` (K4, ``csrc/slam_marginal.cu``) is the
 reference's own 9×9 marginal writeback on pose rows + band.
@@ -34,15 +37,11 @@ from .. import _build, _tensors
 from ..utils.geometry import wrap_angle
 
 _ARGTYPES = {
-    "slam_update": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 18,
+    "slam_update": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 19,
     "slam_downdate": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6,
     "slam_marginal": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 15,
 }
 
-# K2's schedule at state dimension D >= STREAMED_MIN_D when ``streamed`` is
-# None: phase 1 + the tiled K12 downdate (see PERF.md for the two
-# schedules' times on the H100 at D=774)
-STREAMED_MIN_D = 512
 
 
 def _lib(name="slam_update"):
@@ -51,6 +50,20 @@ def _lib(name="slam_update"):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _phase1_scratch(dev, B, D, M, dim):
+    """The device scratch phase 1 needs at (B, D, M, dim): None where its
+    per-block working set fits in shared memory, else a float32 buffer of
+    one slice per block (``csrc/slam_update.cu``)."""
+    fn = _build.load("slam_update").slam_update_phase1_scratch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
+    n = fn(_tensors.device_index(dev), B, D, M, dim)
+    if n < 0:
+        raise ValueError(f"phase 1: invalid shape B={B} D={D} M={M} dim={dim}")
+    return torch.empty(n, dtype=torch.float32, device=dev) if n else None
 
 
 def _check(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
@@ -87,9 +100,10 @@ def _check(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
 
 
 def _launch(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
-            cand, a8, band, what, streamed=False):
-    """Launch the update kernel on checked (B, ...) CUDA tensors ->
-    (Sigma, mu, band). The streamed schedule runs ``phase1`` and then K12."""
+            cand, a8, band, what, streamed):
+    """Launch the update kernels on checked (B, ...) CUDA tensors ->
+    (Sigma, mu, band). The streamed schedule runs ``phase1`` and then K12,
+    the one-kernel schedule one kernel."""
     if streamed:
         mu_out, band_out, P_rows, U, V, act = phase1(
             Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand, a8,
@@ -102,9 +116,9 @@ def _launch(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
 def phase1(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand,
            a8, band, what="sequential_update_fleet"):
     """Phase 1 of the streamed schedule on checked CUDA tensors -> (mu,
-    band, P, U, V, act): the kernel stops before the downdate and writes
-    what ``symmetric_downdate`` needs — the factors U, V (B, M·dim, D), the
-    predicted pose rows P (B, 6, D; None without a8) and the activation
+    band, P, U, V, act): a grid of (column tile, mission) blocks writes what
+    ``symmetric_downdate`` needs besides Σ — the factors U, V (B, M·dim, D),
+    the predicted pose rows P (B, 6, D; None without a8) and the activation
     diagonal act (B, D)."""
     return _kernel(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
                    cand, a8, band, what, False)[1:]
@@ -124,12 +138,13 @@ def _kernel(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
     P_rows = torch.empty((B, 6, D), dtype=f32, device=dev) if a8 is not None else None
     U = torch.empty((B, M * dim, D), dtype=f32, device=dev)
     V = torch.empty((B, M * dim, D), dtype=f32, device=dev)
+    scratch = None if write_sigma else _phase1_scratch(dev, B, D, M, dim)
     P = _tensors.ptr
     rc = _lib()(
         _tensors.device_index(dev), _tensors.stream(dev), B, D, M, dim, L,
         P(Sigma), P(mu), P(H_sel), P(SinvH), P(nu_sel), P(lm_ix), P(do),
         P(add), P(new_lm_cov), P(cand), P(a8), P(P_rows), P(U), P(V),
-        P(Sigma_out), P(mu_out), P(band_out), P(act))
+        P(Sigma_out), P(mu_out), P(band_out), P(act), P(scratch))
     _build.check(rc, what)
     return Sigma_out, mu_out, band_out, P_rows, U, V, act
 
@@ -149,23 +164,19 @@ def sequential_update_fleet(
                                 #   rows 0:6 × cols 8:14 = R̃ (validity-gated)
     band: torch.Tensor = None,  # (B, 24, L) landmark block-diag band; when
                                 #   given, the new band is a third output
-    streamed: bool | None = None,  # two-phase schedule: phase 1 writes the
+    streamed: bool = True,      # two-phase schedule: phase 1 writes the
                                 #   U/V factors, μ and the band, then K12
-                                #   (``symmetric_downdate``) writes Σ; None
-                                #   takes it for D >= STREAMED_MIN_D
+                                #   (``symmetric_downdate``) writes Σ;
+                                #   False: the one-kernel schedule
 ) -> tuple:
     """Fleet sequential update -> ``(Sigma, mu)``, or ``(Sigma, mu, band)``
     when ``band`` is given. With ``a8``, Σ is the raw covariance and the
     motion predict Σ' = Ã Σ Ãᵀ + R̃ is applied first; with ``cand``, added
-    landmarks' μ rows are initialised to their candidates. The streamed
-    schedule gives the one-kernel schedule's μ and band bit for bit on the
-    card, and its Σ up to the order of the downdate's rounding (the same
-    fmaf sequence, so in practice bit for bit); both Σ are exactly
-    symmetric."""
+    landmarks' μ rows are initialised to their candidates. On the card the
+    two schedules give the same Σ, μ and band bit for bit (the same fmaf
+    sequence per entry); both Σ are exactly symmetric."""
     args = (Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand, a8, band)
     _check(*args, "sequential_update_fleet")
-    if streamed is None:
-        streamed = Sigma.shape[1] >= STREAMED_MIN_D
     if Sigma.device.type == "cpu":
         return sequential_update_fleet_reference(*args, streamed=streamed)
     Sigma_out, mu_out, band_out = _launch(
@@ -191,14 +202,15 @@ def sequential_update(
     add: torch.Tensor,      # (M,) bool (implies do)
     new_lm_cov: torch.Tensor,  # (3,)
 ) -> tuple:
-    """All M sequential updates of one mission -> (Sigma, mu)."""
+    """All M sequential updates of one mission -> (Sigma, mu), on K2's
+    streamed schedule: phase 1 + K12."""
     batched = (Sigma[None], mu[None], H_sel[None], SinvH[None], nu_sel[None],
                lm_ix[None], do[None], add[None], new_lm_cov, None, None, None)
     _check(*batched, "sequential_update")
     if Sigma.device.type == "cpu":
         return sequential_update_reference(
-            Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov)
-    Sigma_out, mu_out, _ = _launch(*batched, "sequential_update")
+            Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, streamed=True)
+    Sigma_out, mu_out, _ = _launch(*batched, "sequential_update", True)
     sequential_update.launches += 1
     return Sigma_out[0], mu_out[0]
 
@@ -272,11 +284,11 @@ def sequential_update_fleet_reference(
 
 
 def sequential_update_reference(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do,
-                                add, new_lm_cov):
+                                add, new_lm_cov, streamed=False):
     """Plain PyTorch version of ``sequential_update``."""
     S, m = sequential_update_fleet_reference(
         Sigma[None], mu[None], H_sel[None], SinvH[None], nu_sel[None],
-        lm_ix[None], do[None], add[None], new_lm_cov)
+        lm_ix[None], do[None], add[None], new_lm_cov, streamed=streamed)
     return S[0], m[0]
 
 

@@ -116,13 +116,20 @@ def test_normals_statistics_and_keying():
     nx2, _, _ = K.normals3(torch.tensor(8), idx)
     assert abs(float(torch.corrcoef(torch.stack([nx, nx2]))[0, 1])) < 0.03
     # a particle's draw depends on its global index only (the K8 seed_off):
-    # the integer stream bitwise; the normals to float rounding, since the
-    # last bit of a CPU log/sin/cos may depend on how torch splits the call
+    # the integer stream bitwise; the normals, whose last bits depend on how
+    # torch's CPU log/cos split the call, each against Box-Muller in float64
+    # on those same uniforms, within what f32 rounding allows: log and cos
+    # within a few ulps, 2π·u rounded twice (|δang| <= 2ε·ang), so
+    # |x - x64| <= ε·r·(16 + 2·ang) with ε = 2^-24
     for draw in range(4):
         assert torch.equal(K.uniforms(torch.tensor(7), idx[100:], draw),
                            K.uniforms(torch.tensor(7), idx, draw)[100:])
+    u0, u1 = (K.uniforms(torch.tensor(7), idx, d).double() for d in (0, 1))
+    r, ang = torch.sqrt(-2.0 * torch.log(u0)), 2.0 * math.pi * u1
+    x64, bound = r * torch.cos(ang), 2.0 ** -24 * r * (16.0 + 2.0 * ang)
     part = K.normals3(torch.tensor(7), idx[100:])[0]
-    torch.testing.assert_close(part, nx[100:], rtol=1e-6, atol=1e-6)
+    for got, want, tol in ((nx, x64, bound), (part, x64[100:], bound[100:])):
+        assert bool(((got.double() - want).abs() <= tol).all())
 
 
 # ---------------------------------------------------------------------------

@@ -180,8 +180,9 @@ def test_da_lanes_plain_matches_jax(jx, sensor, predict, use_band):
     assert (do & ~add).any() and add.any() and (~do).any()
 
 
-def _update_inputs(seed, B, dim, invariant=True):
-    """Random update sequences (K2/K3 contract inputs)."""
+def _update_inputs(seed, B, dim, invariant=True, L=L, M=M):
+    """Random update sequences (K2/K3 contract inputs) over L slots with M
+    updates per mission."""
     rng = np.random.default_rng(seed)
     D = 6 + 3 * L
     A = rng.normal(0, 0.2, (B, D, D))

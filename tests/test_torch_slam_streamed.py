@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from smarc_navigation_tpu_torch.configs import EKFSlamConfig
+from smarc_navigation_tpu_torch.models import ekf_slam as S
 from smarc_navigation_tpu_torch.ops import slam_kernels as tsk
 
 from test_torch_slam_kernels import _close, _to_torch
@@ -72,11 +74,11 @@ def test_streamed_plain_matches_jax(jx):
 
 
 def test_streamed_is_the_default_at_large_state():
-    """``streamed=None`` takes the streamed schedule for D >= STREAMED_MIN_D
-    (its plain version, on the CPU) and the one-kernel schedule below."""
+    """The default schedule is the streamed one (its plain version, on the
+    CPU), here at D >= 512 as at every state size."""
     targs = [_to_torch(a) for a in _inputs(3)]
     S_n, mu_n = tsk.sequential_update_fleet(*targs)
-    S_s, mu_s = tsk.sequential_update_fleet(*targs, streamed=D >= tsk.STREAMED_MIN_D)
+    S_s, mu_s = tsk.sequential_update_fleet(*targs, streamed=True)
     assert torch.equal(S_n, S_s) and torch.equal(mu_n, mu_s)
 
 
@@ -160,3 +162,161 @@ def test_streamed_kernel_matches_one_kernel_schedule(cuda):
     want = tsk.sequential_update_fleet_reference(*args, streamed=True)
     _close(S_s.cpu().numpy(), want[0].cpu().numpy(), rtol=0, atol_scale=1e-4)
     _close(mu_s.cpu().numpy(), want[1].cpu().numpy(), rtol=0, atol_scale=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the streamed schedule at every state size
+# ---------------------------------------------------------------------------
+
+def _update_args(x, b=None):
+    """K2's arguments (all of them) from an ``_update_inputs`` dict, or K3's
+    (no cand, a8, band) for mission ``b``."""
+    if b is not None:
+        return [x[k][b] for k in ("Sigma", "mu", "H", "SinvH", "nu", "lm_ix", "do", "add")] + [
+            x["new_cov"]]
+    return [x[k] for k in ("Sigma", "mu", "H", "SinvH", "nu", "lm_ix", "do", "add", "new_cov",
+                           "cand", "a8", "band")]
+
+
+def test_k3_and_b1_fleet_take_the_streamed_schedule(jx):
+    """The default schedule is the streamed one at every D, for K3 and for
+    K2 at B=1: on the CPU each wrapper gives its plain streamed version bit
+    for bit, and that agrees with the JAX kernels as the large-state test
+    above does."""
+    from test_torch_slam_kernels import _update_inputs
+
+    x = _update_inputs(17, 2, 3)
+    x["add"] &= x["do"]              # the JAX kernels' contract: an add implies do
+    k3 = _update_args(x, 0)
+    got = tsk.sequential_update(*[_to_torch(a) for a in k3])
+    want = tsk.sequential_update_reference(*[_to_torch(a) for a in k3], streamed=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    fleet = [a[0:1] if isinstance(a, np.ndarray) and a.ndim > 1 else a for a in _update_args(x)]
+    gotf = tsk.sequential_update_fleet(*[_to_torch(a) for a in fleet])
+    wantf = tsk.sequential_update_fleet_reference(*[_to_torch(a) for a in fleet], streamed=True)
+    assert all(torch.equal(g, w) for g, w in zip(gotf, wantf))
+    with jx.pltpu.force_tpu_interpret_mode():
+        J3 = jx.sk.sequential_update(*[jx.jnp.asarray(a) for a in k3])
+        JF = jx.sk.sequential_update_fleet(*[jx.jnp.asarray(a) for a in fleet])
+    for g, w, what in ((got[0], J3[0], "K3 Sigma"), (got[1], J3[1], "K3 mu"),
+                       (gotf[0], JF[0], "B=1 Sigma"), (gotf[1], JF[1], "B=1 mu")):
+        _close(g.numpy(), np.asarray(w), rtol=0, atol_scale=1e-5, what=what)
+    assert torch.equal(got[0], got[0].T) and torch.equal(gotf[0], gotf[0].transpose(1, 2))
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def _card_case(case):
+    """K2's arguments at one shape the card tests hold the streamed
+    schedule to."""
+    from test_torch_slam_kernels import _update_inputs
+
+    if case == "headline":        # D=198, B=128
+        x = _update_inputs(51, 128, 3, L=64, M=8)
+    elif case == "L256":          # D=774, B=4
+        x = _update_inputs(52, 4, 3, L=256, M=8)
+    elif case == "B1":            # one mission with a real predict
+        x = _update_inputs(53, 2, 3, L=64, M=8)
+        x = {k: (v[0:1] if isinstance(v, np.ndarray) and v.ndim > 1 else v) for k, v in x.items()}
+    elif case == "odd":           # D=129: odd rows, 4-byte copies
+        x = _update_inputs(54, 5, 2, L=41, M=6)
+    elif case == "small":         # D=21: below one tile of either kernel
+        x = _update_inputs(55, 3, 3, L=5, M=3)
+    elif case == "all_off":
+        x = _update_inputs(56, 6, 3, L=64, M=8)
+        x["do"][:], x["add"][:] = False, False
+    elif case.startswith("defaults"):   # EKFSlamConfig()'s max_obs: M=16, K = 48 (MBES), 32 (FLS)
+        cfg = EKFSlamConfig()
+        dim = 3 if "mbes" in case else 2
+        L_ = 64 if case.endswith("L64") else cfg.max_landmarks
+        x = _update_inputs(58 + dim + L_, 4, dim, L=L_, M=cfg.max_obs)
+    elif case == "spill":         # M=32: phase 1's working set in device scratch, K12 in 3 chunks
+        x = _update_inputs(59, 6, 3, L=64, M=32)
+    else:                         # an add on the last slot of every mission
+        x = _update_inputs(57, 6, 3, L=64, M=8)
+        last = 6 + 3 * 63
+        for b in range(x["do"].shape[0]):   # the update on the last slot goes last
+            hit = np.nonzero(x["lm_ix"][b] == last)[0]
+            order = np.arange(8)
+            if hit.size:
+                order[[hit[0], 7]] = order[[7, hit[0]]]
+            for k in ("H", "SinvH", "nu", "lm_ix", "do", "add", "cand"):
+                x[k][b] = x[k][b][order]
+            x["lm_ix"][b, 7] = last
+            x["do"][b, 7] = x["add"][b, 7] = True
+            x["Sigma"][b, last:, :] = 0.0
+            x["Sigma"][b, :, last:] = 0.0
+            x["mu"][b, last:] = 0.0
+        x["band"] = S.initial_band(torch.from_numpy(x["Sigma"]), 64).numpy()
+    return _update_args(x)
+
+
+CASES = ["headline", "L256", "B1", "odd", "small", "all_off", "add_last", "defaults_mbes_L64",
+         "defaults_fls_L64", "defaults_mbes_L256", "defaults_fls_L256", "spill"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_streamed_is_the_one_kernel_schedule_bit_for_bit(cuda, case):
+    """Phase 1 + K12 give the one-kernel schedule's Σ, μ and band bit for
+    bit, Σ exactly symmetric; one K2 launch per call and one K12 launch per
+    streamed call; both within the plain version's tolerances."""
+    args = _card_case(case)
+    t = [_to_torch(a, cuda) for a in args]
+    n0 = (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches)
+    strm = tsk.sequential_update_fleet(*t)
+    torch.cuda.synchronize()
+    n1 = (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches)
+    one = tsk.sequential_update_fleet(*t, streamed=False)
+    torch.cuda.synchronize()
+    n2 = (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches)
+    assert n1 == (n0[0] + 1, n0[1] + 1) and n2 == (n1[0] + 1, n1[1])
+    for g, w, what in zip(strm, one, ("Sigma", "mu", "band")):
+        assert torch.equal(_bits(g), _bits(w)), f"{case}: {what} differs between the schedules"
+    assert torch.equal(_bits(strm[0]), _bits(strm[0].transpose(1, 2)))
+    want = tsk.sequential_update_fleet_reference(*t, streamed=True)
+    _close(strm[0].cpu().numpy(), want[0].cpu().numpy(), rtol=0, atol_scale=1e-4)
+    _close(strm[1].cpu().numpy(), want[1].cpu().numpy(), rtol=0, atol_scale=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_symmetric_downdate_kernel_on_phase1_factors(cuda, case):
+    """K12 on phase 1's own outputs against its plain version, exactly
+    symmetric, one launch per call."""
+    args = _card_case(case)
+    t = [_to_torch(a, cuda) for a in args]
+    mu, band, P, U, V, act = tsk.phase1(*t)
+    n0 = tsk.symmetric_downdate.launches
+    got = tsk.symmetric_downdate(t[0], U, V, P, act)
+    torch.cuda.synchronize()
+    assert tsk.symmetric_downdate.launches == n0 + 1
+    want = tsk.symmetric_downdate_reference(t[0], U, V, P, act)
+    _close(got.cpu().numpy(), want.cpu().numpy(), rtol=0, atol_scale=1e-5)
+    assert torch.equal(_bits(got), _bits(got.transpose(1, 2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["headline", "odd", "small", "all_off", "add_last",
+                                  "defaults_mbes_L64", "spill"])
+def test_k3_is_the_one_kernel_schedule_bit_for_bit(cuda, case):
+    """K3 (B=1, no predict) through phase 1 + K12: the one-kernel schedule's
+    bits, one K3 and one K12 launch per call, and its plain version's
+    tolerances."""
+    args = _card_case(case)
+    k3 = [a[0] if i < 8 else a for i, a in enumerate(args[:9])]
+    t = [_to_torch(a, cuda) for a in k3]
+    n0 = (tsk.sequential_update.launches, tsk.symmetric_downdate.launches)
+    S3, mu3 = tsk.sequential_update(*t)
+    torch.cuda.synchronize()
+    assert (tsk.sequential_update.launches, tsk.symmetric_downdate.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    S1, mu1 = tsk.sequential_update_fleet(*[a[None] if i < 8 else a for i, a in enumerate(t)],
+                                          streamed=False)
+    assert torch.equal(_bits(S3), _bits(S1[0])) and torch.equal(_bits(mu3), _bits(mu1[0]))
+    assert torch.equal(_bits(S3), _bits(S3.T))
+    want = tsk.sequential_update_reference(*t, streamed=True)
+    _close(S3.cpu().numpy(), want[0].cpu().numpy(), rtol=0, atol_scale=1e-4)
+    _close(mu3.cpu().numpy(), want[1].cpu().numpy(), rtol=0, atol_scale=1e-5)
