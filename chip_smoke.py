@@ -20,14 +20,18 @@ Phases (any failure exits nonzero; nothing is caught):
      + K12 ``symmetric_downdate``) and bitwise equal to the one-kernel
      schedule (Σ, μ, band), timed beside it; K12 on phase 1's factors, timed
      beside ``torch.baddbmm`` and beside its memory path alone (K12 at one
-     factor row, ``Tensor.clone`` of Σ); discrete outputs exact, floats
-     within 1e-4 of each output's scale;
+     factor row, ``Tensor.clone`` of Σ); K11 ``hungarian_lanes`` on K1's own
+     (B, L+M, M) cost tables (the JV's share of K1) and K1 on one mission (the
+     combined mission's shape), each beside its bound; discrete outputs
+     exact, floats within 1e-4 of each output's scale;
  3b. the slice-3 kernels against their plain versions at L=256, B=32
      (D=774), on the states of the reference-tuned fleet after 50 ticks in
-     each covariance semantics: K1 in its pose-rows form (MBES with predict
-     and band, FLS), K4 ``sequential_update_marginal_fleet`` (dim 3 and 2,
-     with and without a8), K11 ``hungarian_lanes`` on the DA stage's own
-     (B, L+M, M) cost tables, K2 at D=774 (streamed schedule bitwise equal
+     each covariance semantics: K1 in its pose-rows and its full-Σ form
+     (MBES with predict and band, FLS), each beside its bound, K4
+     ``sequential_update_marginal_fleet`` (dim 3 and 2, with and without a8;
+     and at M=16, ``EKFSlamConfig()``'s max_obs, on the DA selection of the
+     same fleet replayed at M=16), K11 ``hungarian_lanes`` on the DA stage's
+     own (B, L+M, M) cost tables, K2 at D=774 (streamed schedule bitwise equal
      to the one-kernel one: Σ, μ, band; Σ exactly symmetric) and K12
      ``symmetric_downdate`` on K2's phase-1 factors, timed beside
      ``torch.baddbmm`` computing Σ − ½(UᵀV + VᵀU) (the yardstick; the port
@@ -105,7 +109,10 @@ CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); K2's and
 K3's are their streamed path's, phase 1 + K12, with the one-kernel
 schedule's beside them, and K12's line holds its L=64 and L=256 numbers;
 the back-to-back wall time per wrapper call is printed beside it, and
-``plain_ms`` is the plain version's back-to-back time on the card;
+``plain_ms`` is the plain version's back-to-back time on the card; K1's
+entry also holds its FLS form, one mission, K11 on its tables, the L=256
+forms and its launches on each main path (the combined mission's too), K4's
+its time at M=16;
 ``library_ms`` (K12's only: ``torch.baddbmm``) is the device time of all
 the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
@@ -328,6 +335,56 @@ def compare_da(got, want, z_mask, what):
             raise AssertionError(f"{what}: {name} max err {err:.3e} > {tol:.3e}")
         worst = max(worst, err)
     return worst
+
+
+def k1_case(what, args, kw, z_mask, dim):
+    """K1 on one input set: the kernel against its plain version
+    (``compare_da``), its device time and its bound from these inputs (the
+    stage reads Σ's six pose rows either way; Sll comes from the band)."""
+    import torch
+
+    from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
+
+    got = K1.da_lanes(*args, **kw)
+    torch.cuda.synchronize()
+    err = compare_da(got, K1.da_lanes_reference(*args, **kw), z_mask, f"K1 {what}")
+    rows = kw["pose_rows"] if kw.get("pose_rows") is not None else args[4]
+    B, L, M = args[2].shape[0], args[2].shape[1], args[5].shape[1]
+    bnd = bound(nbytes(*args[:4], rows[:, 0:6], args[5], args[6], kw.get("A"), kw.get("r_full"),
+                       kw.get("band"), *got), k1_flops(B, L, M, dim, kw.get("A") is not None))
+    res = dict(err=err, ms=device_ms(lambda: K1.da_lanes(*args, **kw), 30, "da_kernel"),
+               bound=bnd, shape=(B, L, M))
+    print(f"K1 da_lanes {what} B={B} L={L} M={M}: detections {int(z_mask.sum())}, do "
+          f"{int(got[5].sum())}, add {int(got[6].sum())}, max err {err:.3e}; kernel "
+          f"{res['ms']:.4f} ms device, bound {bnd[0]:.5f} ms ({bnd[1]})", flush=True)
+    return res, got
+
+
+def k11_case(what, cost, want_ctr):
+    """K11 on the DA stage's own cost tables: col_to_row exactly the plain
+    version's and the DA kernel's; device time, back-to-back time, plain
+    time and bound."""
+    import torch
+
+    from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
+
+    ctr = K1.hungarian_lanes(cost)
+    torch.cuda.synchronize()
+    if not (torch.equal(ctr, K1.hungarian_lanes_reference(cost)) and torch.equal(ctr, want_ctr)):
+        raise AssertionError(f"K11 {what}: col_to_row differs from the plain version")
+    B, R, C = cost.shape
+
+    def k11():
+        return K1.hungarian_lanes(cost)
+
+    res = dict(err=0.0, ms=device_ms(k11, 30, "jv_kernel"), wall_ms=wall_ms(k11, 50),
+               plain_ms=wall_ms(lambda: K1.hungarian_lanes_reference(cost), 3),
+               bound=bound(nbytes(cost, ctr), 4 * B * C * R), shape=(B, R, C))
+    print(f"K11 hungarian_lanes {what} B={B} R={R} C={C}: col_to_row exact; kernel "
+          f"{res['ms']:.4f} ms device ({res['wall_ms']:.4f} ms per call back to back), plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.5f} ms ({res['bound'][1]})",
+          flush=True)
+    return res
 
 
 def band_entries(band):
@@ -733,7 +790,7 @@ def pf_main_paths(dev, cfg, params, counters):
           f"({cb_wall:.2f} s host), real-time factor {duration / (cb_ms / 1e3):.1f}x; "
           f"value {float(val):.4f}; launches {cb_launch}", flush=True)
 
-    return pk, pf_launch, pt_launch
+    return pk, pf_launch, pt_launch, cb_launch
 
 
 def marginal_err(got, want, what):
@@ -828,10 +885,12 @@ def k12_phase(Sigma, U, V, P1, act, what):
 
 
 def slam256_kernels_phase(dev, cfg, params, tl):
-    """Phase 3b: K1 pose-rows form, K4, K11, K2 at D=774 and K12 against
-    their plain versions at L=256, B=32; K2 streamed == one-kernel."""
+    """Phase 3b: K1 in both forms (pose rows, full Σ; MBES and FLS), K4 (and
+    at M=16), K11, K2 at D=774 and K12 against their plain versions at
+    L=256, B=32; K2 streamed == one-kernel."""
     import torch
 
+    from smarc_navigation_tpu_torch.io.workloads import slam_fleet_timelines
     from smarc_navigation_tpu_torch.models import ekf_slam as S
     from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
     from smarc_navigation_tpu_torch.ops import slam_kernels as K2
@@ -863,10 +922,8 @@ def slam256_kernels_phase(dev, cfg, params, tl):
                       cfg.outlier_cost, cfg.mhl_dist_mbes, new_cov)
     da_kw = dict(sensor="mbes", A=a8[:, 0:6, 0:6].contiguous(),
                  r_full=a8[:, 0:6, 8:14].contiguous(), band=ms_p.band, pose_rows=ms_p.rows)
-    got = K1.da_lanes(*da_args, **da_kw)
-    torch.cuda.synchronize()
+    res["K1_pose_rows"], got = k1_case("pose-rows form MBES", da_args, da_kw, zm, 3)
     want = K1.da_lanes_reference(*da_args, **da_kw)
-    e1 = compare_da(got, want, zm, "K1 pose rows MBES")
     params_f = fls_params(S, cfg, dev)
     zf, zfm = fls_detections(S, ms_p.mu, ms_p.active, params_f, M, dev)
     zfm = zfm & valid_t[:, None]
@@ -874,15 +931,7 @@ def slam256_kernels_phase(dev, cfg, params, tl):
                        cfg.outlier_cost, cfg.mhl_dist_fls, torch.tensor(S.FLS.new_lm_cov, device=dev))
     fls_kw = dict(sensor="fls", r_sb=params_f.r_fls_base, t_sb=params_f.t_fls_base,
                   band=ms_p.band, pose_rows=ms_p.rows)
-    gotf = K1.da_lanes(*fls_args, **fls_kw)
-    torch.cuda.synchronize()
-    e1f = compare_da(gotf, K1.da_lanes_reference(*fls_args, **fls_kw), zfm, "K1 pose rows FLS")
-    res["K1_pose_rows"] = dict(err=max(e1, e1f), ms=device_ms(
-        lambda: K1.da_lanes(*da_args, **da_kw), 30, "da_kernel"))
-    print(f"K1 da_lanes pose-rows form L={L} B={B}: MBES detections {int(zm.sum())}, "
-          f"do {int(got[5].sum())}, add {int(got[6].sum())}; FLS detections {int(zfm.sum())}, "
-          f"do {int(gotf[5].sum())}; max err {res['K1_pose_rows']['err']:.3e}; kernel "
-          f"{res['K1_pose_rows']['ms']:.4f} ms device", flush=True)
+    res["K1_pose_rows_fls"], gotf = k1_case("pose-rows form FLS", fls_args, fls_kw, zfm, 2)
 
     errs4 = []
     k4_main = None
@@ -908,20 +957,49 @@ def slam256_kernels_phase(dev, cfg, params, tl):
                      bound=bound(nbytes(*args4[:-1], args4[-1], *g4),
                                  k4_flops(B, D, M, 3, True)))
 
+    # --- K4 at EKFSlamConfig()'s max_obs=16: the same fleet replayed at M=16 --
+    cfg16 = dataclasses.replace(cfg, max_obs=16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tl16 = slam_fleet_timelines(cfg16, 6.0, B).to(dev)
+    odom16 = tl16.channels["odom"]
+    pose16 = S._odom_pose(odom16.value[:, T_WARM]).contiguous()
+    valid16 = odom16.valid[:, T_WARM].contiguous()
+    ev16 = tl16.events["mbes"]
+    z16 = ev16.value[:, T_WARM].contiguous()
+    zm16 = (ev16.mask[:, T_WARM] & valid16[:, None]).contiguous()
+    fm16, _ = S.run_fleet(tl16.map(lambda x: x[:, :T_WARM]), params, cfg16,
+                          update_mode="marginal", graph=False)
+    rows16 = torch.zeros(B, 8, D, device=dev)
+    rows16[:, 0:6] = fm16.Sigma[:, 0:6]
+    ms16 = S.MarginalFleetState(mu=fm16.mu, rows=rows16,
+                                band=S.initial_band(fm16.Sigma, L).contiguous(),
+                                active=fm16.active, n_active=fm16.n_active,
+                                mu_auv_odom=fm16.mu_auv_odom)
+    ms16_p, a816 = S._fleet_predict_marginal(ms16, pose16, valid16, params, predict_rows=False)
+    args16 = (ms16_p.mu[:, 0:6].contiguous(), ms16_p.n_active, ms16_p.active,
+              ms16_p.mu[:, 6:].reshape(B, L, 3).contiguous(), None, z16, zm16,
+              torch.diagonal(params.Q_mbes), params.lambda_mbes, cfg.outlier_cost,
+              cfg.mhl_dist_mbes, new_cov)
+    kw16 = dict(sensor="mbes", A=a816[:, 0:6, 0:6].contiguous(),
+                r_full=a816[:, 0:6, 8:14].contiguous(), band=ms16_p.band, pose_rows=ms16_p.rows)
+    res["K1_pose_rows_M16"], got16 = k1_case("pose-rows form MBES", args16, kw16, zm16, 3)
+    args4_16 = (ms16_p.rows, ms16_p.mu, *got16[1:4], (6 + 3 * got16[7]).contiguous(), got16[5],
+                got16[6], new_cov, got16[4], ms16_p.band, a816)
+    g4 = K2.sequential_update_marginal_fleet(*args4_16)
+    torch.cuda.synchronize()
+    err16 = marginal_err(g4, K2.sequential_update_marginal_fleet_reference(*args4_16), "K4 M=16")
+    res["K4_M16"] = dict(err=err16, ms=device_ms(
+        lambda: K2.sequential_update_marginal_fleet(*args4_16), 30, "marginal_kernel"),
+        bound=bound(nbytes(*args4_16, *g4), k4_flops(B, D, 16, 3, True)))
+    res["K4"]["err"] = max(res["K4"]["err"], err16)
+    print(f"K4 M=16 (updates applied {int(got16[5].sum())} of {B * 16}): max err {err16:.3e}; "
+          f"kernel {res['K4_M16']['ms']:.4f} ms device, bound {res['K4_M16']['bound'][0]:.5f} ms "
+          f"({res['K4_M16']['bound'][1]})", flush=True)
+
     # --- K11 on the DA stage's own cost tables ----------------------------------
     cost = K1.da_tables_reference(*da_args, **da_kw)[0].contiguous()
-    ctr11 = K1.hungarian_lanes(cost)
-    torch.cuda.synchronize()
-    if not (torch.equal(ctr11, K1.hungarian_lanes_reference(cost)) and torch.equal(ctr11, want[0])):
-        raise AssertionError("K11: col_to_row differs from the plain version")
-    R, C = cost.shape[1], cost.shape[2]
-
-    def k11():
-        return K1.hungarian_lanes(cost)
-
-    res["K11"] = dict(err=0.0, ms=device_ms(k11, 30, "jv_kernel"), wall_ms=wall_ms(k11, 50),
-                      plain_ms=wall_ms(lambda: K1.hungarian_lanes_reference(cost), 3),
-                      bound=bound(nbytes(cost, ctr11), 4 * B * C * R), shape=(B, R, C))
+    res["K11"] = k11_case(f"on the L={L} DA tables", cost, want[0])
 
     # --- the full carry: K2 at D=774, phase 1 + K12 ---------------------------
     st, _ = S.run_fleet(warm, params, cfg)
@@ -931,9 +1009,13 @@ def slam256_kernels_phase(dev, cfg, params, tl):
                st_p.mu[:, 6:].reshape(B, L, 3).contiguous(), st_p.Sigma, z, zm,
                torch.diagonal(params.Q_mbes), params.lambda_mbes, cfg.outlier_cost,
                cfg.mhl_dist_mbes, new_cov)
-    ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = K1.da_lanes(
-        *da_full, sensor="mbes", A=a8f[:, 0:6, 0:6].contiguous(),
-        r_full=a8f[:, 0:6, 8:14].contiguous(), band=band)
+    res["K1_full"], (ctr, H_sel, SinvH, nu_sel, cand, do, add, slot) = k1_case(
+        "full form MBES", da_full, dict(sensor="mbes", A=a8f[:, 0:6, 0:6].contiguous(),
+                                        r_full=a8f[:, 0:6, 8:14].contiguous(), band=band), zm, 3)
+    zff, zffm = fls_detections(S, st_p.mu, st_p.active, params_f, M, dev)
+    zffm = zffm & valid_t[:, None]
+    res["K1_full_fls"], _ = k1_case("full form FLS", da_full[:5] + (zff, zffm) + fls_args[7:],
+                                    dict(fls_kw, pose_rows=None, band=band), zffm, 2)
     k2_args = (st_p.Sigma, st_p.mu, H_sel, SinvH, nu_sel, (6 + 3 * slot).contiguous(), do, add,
                new_cov, cand, a8f, band)
     one = K2.sequential_update_fleet(*k2_args, streamed=False)
@@ -954,7 +1036,7 @@ def slam256_kernels_phase(dev, cfg, params, tl):
         *k2_args, streamed=False), 5, "update_kernel"),
         phase1_ms=device_ms(lambda: K2.phase1(*k2_args), 30, "phase1_kernel"),
         bound=bound(nbytes(*k2_args, *one), k2_flops(B, D, M, 3, True)))
-    for k in ("K4", "K11"):
+    for k in ("K4",):
         v = res[k]
         print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms "
               f"per call back to back), plain {v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms "
@@ -1394,23 +1476,24 @@ def main():
                cfg.mhl_dist_mbes, new_cov)
     da_kw = dict(sensor="mbes", A=a8[:, 0:6, 0:6].contiguous(),
                  r_full=a8[:, 0:6, 8:14].contiguous(), band=band)
-    got = K1.da_lanes(*da_args, **da_kw)
-    torch.cuda.synchronize()
-    want = K1.da_lanes_reference(*da_args, **da_kw)
-    k1_err = compare_da(got, want, zm, "K1 MBES")
+    k1, got = k1_case("MBES", da_args, da_kw, zm, 3)
+    k1_err, k1_ms, k1_bound = k1["err"], k1["ms"], k1["bound"]
 
-    def k1():
+    def k1_call():
         return K1.da_lanes(*da_args, **da_kw)
 
-    k1_ms, k1_wall = device_ms(k1, 30, "da_kernel"), wall_ms(k1, 50)
+    k1_wall = wall_ms(k1_call, 50)
     k1_plain_ms = wall_ms(lambda: K1.da_lanes_reference(*da_args, **da_kw), 3)
-    # the stage reads Σ's six pose rows (Sll comes from the band)
-    k1_bound = bound(nbytes(*da_args[:4], st_p.Sigma[:, 0:6], z, zm, da_kw["A"], da_kw["r_full"],
-                            band, *got), k1_flops(B, L, M, 3, True))
-    print(f"K1 da_lanes MBES: detections {int(zm.sum())}, do {int(got[5].sum())}, "
-          f"add {int(got[6].sum())}, max err {k1_err:.3e}; kernel {k1_ms:.4f} ms device "
-          f"({k1_wall:.4f} ms per call back to back), plain {k1_plain_ms:.2f} ms, bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})", flush=True)
+    print(f"K1 da_lanes MBES: {k1_wall:.4f} ms per call back to back, plain {k1_plain_ms:.2f} ms",
+          flush=True)
+    # K11 on the same (B, L+M, M) cost tables: the JV's share of K1
+    k11_64 = k11_case(f"on the L={L} DA tables", K1.da_tables_reference(
+        *da_args, **da_kw)[0].contiguous(), got[0])
+    # one mission, as the combined mission's compact replay runs it
+    one = [x[0:1].contiguous() if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == B
+           else x for x in da_args]
+    k1_b1, _ = k1_case("MBES, one mission", one, {k: v[0:1].contiguous() if k != "sensor" else v
+                                                  for k, v in da_kw.items()}, zm[0:1], 3)
 
     # FLS form: pixel detections of each mission's mapped landmarks through a
     # tilted, offset sonar mount, plus one far candidate; no predict, band on
@@ -1423,14 +1506,8 @@ def main():
                 cfg.mhl_dist_fls, torch.tensor(S.FLS.new_lm_cov, device=dev))
     fls_kw = dict(sensor="fls", r_sb=params_f.r_fls_base, t_sb=params_f.t_fls_base,
                   band=band)
-    gotf = K1.da_lanes(*fls_args, **fls_kw)
-    torch.cuda.synchronize()
-    wantf = K1.da_lanes_reference(*fls_args, **fls_kw)
-    k1f_err = compare_da(gotf, wantf, zfm, "K1 FLS")
-    k1f_ms = device_ms(lambda: K1.da_lanes(*fls_args, **fls_kw), 30, "da_kernel")
-    print(f"K1 da_lanes FLS: detections {int(zfm.sum())}, do {int(gotf[5].sum())}, "
-          f"add {int(gotf[6].sum())}, max err {k1f_err:.3e}; kernel {k1f_ms:.4f} ms device",
-          flush=True)
+    k1f, _ = k1_case("FLS", fls_args, fls_kw, zfm, 2)
+    k1f_err = k1f["err"]
 
     # K2 on K1's selection, with the predict, the band and the candidates
     ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = got
@@ -1576,7 +1653,7 @@ def main():
     l256, g256 = slam256_replays(dev, cfg256, params256, tl256, counters)
 
     # --- 7-10. the PF kernels, slice, headline and the combined mission ------
-    pk, pf_launch, pt_launch = pf_main_paths(dev, cfg, params, counters)
+    pk, pf_launch, pt_launch, cb_launch = pf_main_paths(dev, cfg, params, counters)
 
     # --- 11-15. the localization and 15-state fleets ----------------------------
     k9, k10, (fl_launch, g_filters) = filter_fleets(dev)
@@ -1589,9 +1666,24 @@ def main():
 
     k12_256 = k256["K12"]
 
+    def brief(r):
+        return dict(ms=r["ms"], bound_ms=r["bound"][0], bound_by=r["bound"][1],
+                    max_abs_err=r["err"], shape=list(r["shape"]))
+
+    k1_l256 = {k: brief(k256[k]) for k in ("K1_pose_rows", "K1_pose_rows_fls", "K1_full",
+                                           "K1_full_fls", "K1_pose_rows_M16")}
     kernels = [
+        # K1 at the L=64 headline (MBES, with predict and band); beside it the
+        # FLS form, one mission, K11 on the same tables (the JV's share), the
+        # L=256 forms and the launches of each main path
         entry("da_lanes", "slam_da.cu", "slam_da_kernels.py:581", launches["da_lanes"],
-              max(k1_err, k1f_err, k256["K1_pose_rows"]["err"]), k1_ms, k1_plain_ms, k1_bound),
+              max([k1_err, k1f_err, k1_b1["err"]] + [v["max_abs_err"] for v in k1_l256.values()]),
+              k1_ms, k1_plain_ms, k1_bound, fls=brief(k1f), one_mission=brief(k1_b1),
+              jv_alone=brief(k11_64), L256=k1_l256,
+              launches_by_path={"slam-fleet128-L64": launches["da_lanes"],
+                                "slam-fleet32-L256-full": l256["full"]["da_lanes"],
+                                "slam-fleet32-L256-marginal": l256["marginal"]["da_lanes"],
+                                "combined-1M": cb_launch["da_lanes"]}),
         # K2 and K3: the streamed path's device time, phase 1 + K12
         entry("sequential_update_fleet", "slam_update.cu", "slam_kernels.py:791",
               launches["sequential_update_fleet"], max(k2_err, k256["K2_774"]["err"]), k2_ms,
@@ -1605,7 +1697,9 @@ def main():
               one_kernel_ms=k3_one_ms),
         entry("sequential_update_marginal_fleet", "slam_marginal.cu", "slam_kernels.py:1124",
               l256["marginal"]["sequential_update_marginal_fleet"], k256["K4"]["err"],
-              k256["K4"]["ms"], k256["K4"]["plain_ms"], k256["K4"]["bound"]),
+              k256["K4"]["ms"], k256["K4"]["plain_ms"], k256["K4"]["bound"],
+              M16=dict(ms=k256["K4_M16"]["ms"], bound_ms=k256["K4_M16"]["bound"][0],
+                       bound_by=k256["K4_M16"]["bound"][1], max_abs_err=k256["K4_M16"]["err"])),
     ] + [
         entry(name, src, rep, cnt[name], pk[k]["err"], pk[k]["ms"], pk[k]["plain_ms"], pk[k]["bound"])
         for k, name, src, rep, cnt in (
@@ -1616,7 +1710,8 @@ def main():
     ] + [
         entry("hungarian_lanes", "slam_da.cu", "slam_da_kernels.py:616",
               l256["full"]["hungarian_lanes"], k256["K11"]["err"], k256["K11"]["ms"],
-              k256["K11"]["plain_ms"], k256["K11"]["bound"]),
+              k256["K11"]["plain_ms"], k256["K11"]["bound"], shape=list(k256["K11"]["shape"]),
+              L64_tables=brief(k11_64)),
         # K12 at the L=64 headline (launches: phases 5-6), and at L=256
         entry("symmetric_downdate", "slam_downdate.cu", "slam_kernels.py:807",
               launches["symmetric_downdate"], max(k12_64["err"], k12_256["err"]), k12_64["ms"],

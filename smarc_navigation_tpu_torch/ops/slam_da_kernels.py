@@ -14,7 +14,9 @@ from the rows and Sll from the band.
 
 ``hungarian_lanes`` (K11) launches the same source's one-warp JV per
 mission on a (B, R, C) cost, replacing the TPU kernel of that name; its
-plain version solves each mission with ``assignment.hungarian``.
+plain version solves each mission with ``assignment.hungarian``. The CUDA
+JV keeps each lane's rows in registers, so on the card both take at most
+``MAX_JV_ROWS`` cost rows (L + M for ``da_lanes``).
 
 The plain version of K1 is the batched ``ekf_slam.da_stage`` on the three Σ
 slabs, the per-mission ``assignment.hungarian`` and the kernel-branch
@@ -31,6 +33,8 @@ from torch.func import vmap
 from .. import _build, _tensors
 from .assignment import hungarian
 
+# the CUDA JV keeps each lane's rows in registers: at most 32 rows per lane
+MAX_JV_ROWS = 1024
 _ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 19
 _JV_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
 
@@ -132,6 +136,8 @@ def da_lanes(
             pose_rows)
     if dev.type != "cuda":
         raise ValueError(f"da_lanes runs on CUDA or CPU tensors, not {dev}")
+    if L + M > MAX_JV_ROWS:
+        raise ValueError(f"da_lanes on CUDA takes L + M <= {MAX_JV_ROWS} cost rows, got {L + M}")
     par = _params_vec(q_diag, lam, outlier, mh_dist, new_lm_cov,
                       r_sb if sensor == "fls" else None,
                       t_sb if sensor == "fls" else None, dim, dev)
@@ -244,6 +250,8 @@ def hungarian_lanes(cost: torch.Tensor) -> torch.Tensor:
         return hungarian_lanes_reference(cost)
     if dev.type != "cuda":
         raise ValueError(f"hungarian_lanes runs on CUDA or CPU tensors, not {dev}")
+    if R > MAX_JV_ROWS:
+        raise ValueError(f"hungarian_lanes on CUDA takes R <= {MAX_JV_ROWS} rows, got {R}")
     out = torch.empty((B, C), dtype=torch.int32, device=dev)
     rc = _lib("hungarian_lanes_launch", _JV_ARGTYPES)(
         _tensors.device_index(dev),

@@ -354,6 +354,10 @@ def symmetric_downdate_reference(Sigma, U, V, P=None, act=None):
 # K4: marginal writeback (the reference's own covariance semantics)
 # ---------------------------------------------------------------------------
 
+# the CUDA kernel lists a mission's applied updates as 10-bit indices
+MARGINAL_MAX_M = 1023
+
+
 def sequential_update_marginal_fleet(
     P: torch.Tensor,        # (B, 8, D) pose rows Σ[0:6, :] (rows 6:8 padding)
     mu: torch.Tensor,       # (B, D)
@@ -400,6 +404,9 @@ def sequential_update_marginal_fleet(
         return sequential_update_marginal_fleet_reference(*args)
     if dev.type != "cuda":
         raise ValueError(f"sequential_update_marginal_fleet runs on CUDA or CPU tensors, not {dev}")
+    if M > MARGINAL_MAX_M:
+        raise ValueError(f"sequential_update_marginal_fleet on CUDA takes M <= {MARGINAL_MAX_M} "
+                         f"updates, got {M}")
     P_out, mu_out, band_out = torch.empty_like(P), torch.empty_like(mu), torch.empty_like(band)
     ptr = _tensors.ptr
     rc = _lib("slam_marginal")(

@@ -37,16 +37,24 @@ def _optimum(c):
     return c[r, k].astype(np.float64).sum()
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_hungarian_lanes_plain_matches_jax_and_scipy(seed):
+# R across the CUDA JV's rows-per-lane boundaries (32 rows a lane each), on
+# integer costs: the ties pin the rule the kernel keeps (on equal slack the
+# lowest row wins)
+TIE_CASES = [pytest.param(0, 4, 12, 4, id="0"), pytest.param(1, 4, 12, 4, id="1")] + [
+    pytest.param(2 + i, B, R, 8, id=f"ties-B{B}-R{R}-C8")
+    for i, (B, R) in enumerate([(4, 31), (4, 32), (4, 33), (2, 65)])]
+
+
+@pytest.mark.parametrize("seed,B,R,C", TIE_CASES)
+def test_hungarian_lanes_plain_matches_jax_and_scipy(seed, B, R, C):
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
 
     from smarc_navigation_tpu.ops.slam_da_kernels import hungarian_lanes as j_hungarian_lanes
 
-    cost = _costs(seed)
+    cost = _costs(seed, B, R, C)
     got = tda.hungarian_lanes(torch.from_numpy(cost))
-    assert got.dtype == torch.int32 and got.shape == (4, 4)
+    assert got.dtype == torch.int32 and got.shape == (B, C)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(j_hungarian_lanes(jnp.asarray(cost)))
     np.testing.assert_array_equal(got.numpy(), want)
@@ -72,9 +80,17 @@ def cuda():
     return torch.device("cuda")
 
 
+# R on both sides of the CUDA JV's rows-per-lane boundaries (32 rows a
+# lane), C up to 16 and past 32 (the column duals then live in shared
+# memory), integer costs (ties), B=1
 @pytest.mark.cuda
-def test_hungarian_lanes_kernel_matches_plain(cuda):
-    cost = torch.from_numpy(np.concatenate([_costs(s, R=40, C=8) for s in range(4)]))
+@pytest.mark.parametrize("B,R,C", [(16, 40, 8), (4, 32, 8), (4, 33, 8), (4, 64, 8), (4, 65, 16),
+                                   (4, 256, 8), (4, 257, 16), (4, 264, 8), (4, 272, 16),
+                                   (1, 72, 8), (1, 264, 16), (2, 80, 40)])
+def test_hungarian_lanes_kernel_matches_plain(cuda, B, R, C):
+    # four missions a seed, the first of each all ties; B=1 takes a mixed one
+    tables = np.concatenate([_costs(s, R=R, C=C) for s in range((B + 3) // 4)])
+    cost = torch.from_numpy(tables[1:2] if B == 1 else tables[:B])
     n0 = tda.hungarian_lanes.launches
     got = tda.hungarian_lanes(cost.to(cuda))
     torch.cuda.synchronize()

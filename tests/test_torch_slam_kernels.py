@@ -61,10 +61,12 @@ def _params(fls_mount: bool):
     return S.make_params(CFG, tf_base_fls=tf, device="cpu")
 
 
-def _fleet_inputs(seed, B, sensor, params, n_act=(5, 9, 0)):
+def _fleet_inputs(seed, B, sensor, params, n_act=(5, 9, 0), L=L, M=M, dup=False):
     """A fleet that honours the padding invariant (inactive slots' Σ rows
     and columns and μ entries are zero) with detections that re-observe
-    active landmarks, propose new ones, and leave some slots masked."""
+    active landmarks, propose new ones, and leave some slots masked. With
+    ``dup``, slot 1 is slot 0 again (position and Σ): the two detections of
+    a mission see the same costs on both rows, an exact tie."""
     rng = np.random.default_rng(seed)
     D = 6 + 3 * L
     mu = np.zeros((B, D), np.float32)
@@ -83,9 +85,13 @@ def _fleet_inputs(seed, B, sensor, params, n_act=(5, 9, 0)):
             lms = mu[b, 0:3] + rng.uniform([6, -4, -2], [14, 4, 1], (na, 3))
         else:
             lms = mu[b, 0:3] + rng.uniform([-10, -10, -12], [10, 10, -8], (na, 3))
-        mu[b, 6:Da] = lms.reshape(-1)
         Af = rng.normal(0, 0.08, (Da, Da))
         Sig[b, :Da, :Da] = Af @ Af.T + np.eye(Da) * 0.05
+        if dup and na >= 2:
+            lms[1] = lms[0]
+            Sig[b, 9:12, :] = Sig[b, 6:9, :]
+            Sig[b, :, 9:12] = Sig[b, :, 6:9]
+        mu[b, 6:Da] = lms.reshape(-1)
         active[b, :na] = True
         n_active[b] = na
         pose = torch.from_numpy(mu[b, 0:6])
@@ -141,17 +147,23 @@ def _to_jax(jx, v):
 DA_NAMES = ["col_to_row", "H_sel", "SinvH", "nu_sel", "cand", "do", "add", "slot"]
 
 
-def _assert_da_equal(got, want, z_mask):
+def _assert_da_equal(got, want, z_mask, z_scale=None):
     """Discrete outputs exact; float outputs to tolerance on the detections
     that are present. A masked-out detection (z = 0) back-projects, in the
     FLS form, onto the sensor origin, where the pixel model is singular
     (range ~1e-6 m): its H/S⁻¹ are finite but carry no digits, and no update
-    reads them (do is False)."""
+    reads them (do is False). With ``z_scale`` (the detections' max |z|),
+    ν is held at the detections' scale: a detection that adds a landmark has
+    ν = z − h(x(z)), zero but for the f32 rounding of z (3e-5 px at 256 px),
+    which the kernel's closed form and the plain jacfwd path round apart."""
     for n, g, w in zip(DA_NAMES, got, want):
         if n in ("col_to_row", "do", "add", "slot"):
             np.testing.assert_array_equal(g, w, err_msg=n)
         elif n == "cand":
             _close(g, w, what=n)
+        elif n == "nu_sel" and z_scale is not None:
+            np.testing.assert_allclose(g[z_mask], w[z_mask], rtol=1e-4,
+                                       atol=1e-5 * max(1.0, z_scale), err_msg=n)
         else:
             _close(g[z_mask], w[z_mask], what=n)
 
@@ -280,12 +292,32 @@ def cuda():
     return torch.device("cuda")
 
 
+# The CUDA JV keeps rows lane + 32k of the (L+M)×M table in lane registers:
+# L + M on both sides of each rows-per-lane boundary, with exact ties
+# (duplicate landmarks; every detection gated to the outlier cost) and B=1.
+DA_KERNEL_CASES = [pytest.param(*c, None, id="-".join(map(str, c))) for c in DA_CASES] + [
+    pytest.param("mbes", True, True, dict(L=Lx, M=Mx, B=3, ties="dup"), id=f"mbes-L{Lx}-M{Mx}-dup")
+    for Lx in (24, 25, 56, 57, 248, 256) for Mx in (8, 16)] + [
+    pytest.param("fls", True, True, dict(L=56, M=8, B=3, ties="dup"), id="fls-L56-M8-dup"),
+    pytest.param("mbes", True, True, dict(L=57, M=16, B=3, ties="gated"), id="mbes-L57-M16-gated"),
+    pytest.param("fls", False, True, dict(L=248, M=8, B=2, ties="gated"), id="fls-L248-M8-gated"),
+    pytest.param("mbes", True, True, dict(L=64, M=8, B=1, ties="dup"), id="mbes-L64-M8-B1"),
+    pytest.param("fls", True, True, dict(L=256, M=16, B=1, ties="dup"), id="fls-L256-M16-B1"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("sensor,predict,use_band", DA_CASES)
-def test_da_lanes_kernel_matches_plain(cuda, sensor, predict, use_band):
+@pytest.mark.parametrize("sensor,predict,use_band,shape", DA_KERNEL_CASES)
+def test_da_lanes_kernel_matches_plain(cuda, sensor, predict, use_band, shape):
     params = _params(fls_mount=sensor == "fls")
-    x = _fleet_inputs(7, 5, sensor, params)
+    if shape is None:
+        x = _fleet_inputs(7, 5, sensor, params)
+    else:
+        x = _fleet_inputs(7, shape["B"], sensor, params, L=shape["L"], M=shape["M"],
+                          dup=shape["ties"] == "dup")
     args, kw = _da_args(x, sensor, params, predict, use_band)
+    if shape is not None and shape["ties"] == "gated":
+        args[8] = -1.0  # lam: no Mahalanobis distance gates, every cost is the outlier's
     targs = [_to_torch(a, cuda) for a in args]
     tkw = {k: _to_torch(v, cuda) for k, v in kw.items()}
     n0 = tda.da_lanes.launches
@@ -294,7 +326,7 @@ def test_da_lanes_kernel_matches_plain(cuda, sensor, predict, use_band):
     assert tda.da_lanes.launches == n0 + 1
     want = tda.da_lanes_reference(*targs, **tkw)
     _assert_da_equal([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
-                     x["z_mask"])
+                     x["z_mask"], None if shape is None else float(np.abs(x["z"]).max()))
 
 
 @pytest.mark.cuda

@@ -70,9 +70,10 @@ def jx():
 # K4 on direct inputs
 # ---------------------------------------------------------------------------
 
-def _marginal_inputs(seed, B, dim):
+def _marginal_inputs(seed, B, dim, M=M, add_last=False):
     """A marginal-semantics fleet state (pose rows + band of a random SPD Σ
-    whose added slots are still empty) and a random update sequence."""
+    whose added slots are still empty) and a random update sequence. With
+    ``add_last`` every mission's last update adds a landmark in slot L-1."""
     rng = np.random.default_rng(seed)
     A = rng.normal(0, 0.2, (B, D, D))
     Sigma = (np.einsum("bij,bkj->bik", A, A) + np.eye(D)[None]).astype(np.float32)
@@ -86,6 +87,12 @@ def _marginal_inputs(seed, B, dim):
     do = rng.random((B, M)) < 0.8
     add = (rng.random((B, M)) < 0.4) & do
     do[0, 0], add[0, 1], do[0, 1] = False, True, True
+    if add_last:
+        for b in range(B):
+            k = int(np.nonzero(slots[b] == L - 1)[0][0]) if (slots[b] == L - 1).any() else M - 1
+            slots[b, k], slots[b, M - 1] = slots[b, M - 1], L - 1
+        lm_ix = (6 + 3 * slots).astype(np.int32)
+        do[:, M - 1] = add[:, M - 1] = True
     for b in range(B):                          # an added slot starts empty
         for j in np.nonzero(add[b])[0]:
             s = lm_ix[b, j]
@@ -341,17 +348,52 @@ def cuda():
     return torch.device("cuda")
 
 
+def _assert_untouched_exact(got, args):
+    """What no applied update touches comes back bit for bit: P's padding
+    rows 6:8, the band slots and the μ entries of untouched landmarks (K4
+    spreads these copies over blocks apart from the update chain)."""
+    P, mu, band = (np.asarray(x) for x in got)
+    rows, mu0, lm_ix, do, band0 = args[0], args[1], args[5], args[6], args[10]
+    np.testing.assert_array_equal(P[:, 6:8], rows[:, 6:8])
+    for b in range(rows.shape[0]):
+        touched = {int(l) for l, d in zip(lm_ix[b], do[b]) if d}
+        keep = [s for s in range(band0.shape[2]) if 6 + 3 * s not in touched]
+        np.testing.assert_array_equal(band[b][:, keep], band0[b][:, keep])
+        cols = [6 + 3 * s + a for s in keep for a in range(3)]
+        np.testing.assert_array_equal(mu[b, cols], mu0[b, cols])
+
+
+# Besides the four forms: every update applied, none applied, an add in the
+# last slot, M=16 (EKFSlamConfig()'s max_obs) and B=1.
+MARGINAL_KERNEL_CASES = [pytest.param(d, a, None, id=f"{d}-{a}")
+                         for d, a in [(3, True), (3, False), (2, True), (2, False)]] + [
+    pytest.param(3, True, v, id=f"3-True-{v}") for v in ("all", "none", "add_last", "M16", "B1")] + [
+    pytest.param(2, False, "add_last", id="2-False-add_last")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,with_a8", [(3, True), (3, False), (2, True), (2, False)])
-def test_marginal_update_kernel_matches_plain(cuda, dim, with_a8):
-    args, a8 = _marginal_inputs(60 + dim, 5, dim)
+@pytest.mark.parametrize("dim,with_a8,variant", MARGINAL_KERNEL_CASES)
+def test_marginal_update_kernel_matches_plain(cuda, dim, with_a8, variant):
+    args, a8 = _marginal_inputs(60 + dim, 1 if variant == "B1" else 5, dim,
+                                M=16 if variant == "M16" else M, add_last=variant == "add_last")
+    args[0][:, 6:8] = np.linspace(-1.0, 1.0, args[0][:, 6:8].size).reshape(-1, 2, D)  # padding to copy
+    if variant == "all":
+        args[6][:] = True
+    elif variant == "none":
+        args[6][:] = False
+        args[7][:] = False
     t = [_to_torch(a, cuda) for a in args + ([a8] if with_a8 else [])]
     n0 = tsk.sequential_update_marginal_fleet.launches
     got = tsk.sequential_update_marginal_fleet(*t)
     torch.cuda.synchronize()
     assert tsk.sequential_update_marginal_fleet.launches == n0 + 1
     want = tsk.sequential_update_marginal_fleet_reference(*t)
-    _assert_marginal_close([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want])
+    got = [g.cpu().numpy() for g in got]
+    _assert_marginal_close(got, [w.cpu().numpy() for w in want])
+    _assert_untouched_exact(got, args)
+    if variant == "none" and not with_a8:
+        for g, a in zip(got, (args[0], args[1], args[10])):
+            np.testing.assert_array_equal(g, a)
 
 
 @pytest.mark.cuda
