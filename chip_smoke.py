@@ -36,6 +36,12 @@ Phases (any failure exits nonzero; nothing is caught):
      ``symmetric_downdate`` on K2's phase-1 factors, timed beside
      ``torch.baddbmm`` computing Σ − ½(UᵀV + VᵀU) (the yardstick; the port
      never calls it);
+ 3c. K1 (pose-rows and full-Σ forms, MBES and FLS) and K11 past the register
+     JV: the L=256 fleet's state (B=4) padded with inactive slots to
+     L + M = 1025 and 2048, L=1200 (past the shared memory of the kernel
+     before the register JV) and L=900 at M=64 (the tables alone overflow
+     shared memory), against their plain versions (discrete outputs exact),
+     and on the unpadded state the scratch form bitwise the register form;
   4. the slice against its plain version: ``run_fleet`` of 8 missions over
      100 ticks on the card (kernels) and on the CPU (plain versions);
  4b. the same at L=256 for ``run_fleet(update_mode="marginal")`` and the
@@ -56,7 +62,10 @@ Phases (any failure exits nonzero; nothing is caught):
      K7 ``expand_gather_call`` on healthy, degenerate and zero-run weights
      (ancestors and bank exact; with the jitter within tolerance) and K8
      ``jitter_moments_call`` (and K7 with the jitter == K8 after K7,
-     bitwise);
+     bitwise); K5 timed over nticks 0, 1, 5 and 10 (the intercept is the
+     bank's bytes, the slope the tick loop), K7 timed by weights, with and
+     without the jitter, beside ``torch.repeat_interleave`` of the bank by
+     the counts (K7's ``library_ms``);
   8. the PF slice against its plain version: ``run_fast_segmented`` and
      ``run_fast`` at N = 2^20 over a 10 s mission with every noise std zero
      but the initial spread, on the card (kernels) and on the CPU (plain
@@ -107,23 +116,27 @@ busy share (all kernels' device time over the replay time).
 Every kernel's ``ms`` is its device time from ``torch.profiler`` (the
 CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); K2's and
 K3's are their streamed path's, phase 1 + K12, with the one-kernel
-schedule's beside them, and K12's line holds its L=64 and L=256 numbers;
+schedule's beside them, K7's all the device work of a call (its kernel
+and the wrapper's zero fill of its group counters; the kernel alone in
+``kernel_ms``), and K12's line holds its L=64 and L=256 numbers;
 the back-to-back wall time per wrapper call is printed beside it, and
 ``plain_ms`` is the plain version's back-to-back time on the card; K1's
 entry also holds its FLS form, one mission, K11 on its tables, the L=256
 forms and its launches on each main path (the combined mission's too), K4's
 its time at M=16;
-``library_ms`` (K12's only: ``torch.baddbmm``) is the device time of all
+``library_ms`` (K7's ``torch.repeat_interleave``, K12's ``torch.baddbmm``) is the device time of all
 the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
 5c, 9, 9b, 10, 14 and 15) and read just after it (phase 5's after phase 6). K8 has
 no caller on the single-device path (its TPU callers are the
 particle-sharded update and the TPU's exact-fallback branch) and K11 none
 on any path (the reference calls it from tests only; its JV core runs
-inside K1), so their counts are 0. ``bound_ms`` is the larger of the bytes
+inside K1), so their counts are 0. ``bound_ms`` is the largest of the bytes
 each kernel must move (inputs read once, outputs written once) over
-3.35 TB/s and its float operations over 67 TFLOP/s (H100 SXM data sheet),
-computed from this run's inputs (K9's only for the valid detections of the
+3.35 TB/s, its float operations over 67 TFLOP/s (H100 SXM data sheet) and
+the PF generator's integer operations by pipe: shifts, xors and adds over
+the integer ALU's 132 SMs x 64 lanes x 1.98 GHz, multiplies (IMAD) on the
+FMA pipe beside the float operations, computed from this run's inputs (K9's only for the valid detections of the
 missions whose tick runs, K10's only for the applied sensors). The second-to-last line is a JSON object
 with each kernel's launches, error, times and bound; the last line is the
 device JSON.
@@ -140,9 +153,10 @@ import numpy as np
 
 POSE_TOL = 1e-2   # slice vs plain over 100 ticks (the reference's fleet-vs-dense bound)
 KERNEL_RTOL = 1e-4  # float outputs: max |kernel - plain| <= 1e-4 * max(1, max|plain|)
-# PF slice vs plain over 101 ticks at 2^20 particles: per-particle libm ulps
-# (logf/sincosf vs torch) and a few stratum-boundary ancestor flips move
-# the bank mean by far less than a millimetre
+# PF slice vs plain over 101 ticks at 2^20 particles: the special-function
+# unit's log and sin/cos against torch's (~2^-21 absolute) and a few
+# stratum-boundary ancestor flips move the bank mean by far less than a
+# millimetre
 PF_MEAN_TOL = 1e-3
 PF_N = 1 << 20
 L256_B = 32        # the reference's L=256 fleet (bench.py sec_slam256)
@@ -150,6 +164,8 @@ T_WARM = 50        # ticks replayed before a kernel phase takes the fleet's stat
 N_ONE_KERNEL = 20  # ticks of the L=256 replay timed on the one-kernel K2 schedule
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+# H100 SXM integer ALU (shifts, logic, adds): 64 lanes per SM per clock, 132 SMs, 1.98 GHz
+ALU_OPS = 132 * 64 * 1.98e9
 
 
 def card_line() -> str:
@@ -179,34 +195,39 @@ def wall_ms(fn, n):
 def path_ms(fn, n, kernels):
     """{name fragment: mean device ms per launch} of the CUDA kernels of
     ``kernels``, each launched once per call of fn(), over n calls (after
-    one warm-up), from one torch.profiler trace."""
+    one warm-up), from one torch.profiler trace. The trace may drop records
+    (it never invents one), once all 30 of K7's cooperative launches: a
+    trace that holds none of a kernel's is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    out = {}
-    for k in kernels:
-        total_us, count = 0.0, 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        seen = {k: [0.0, 0] for k in kernels}
         for e in prof.key_averages():
-            if k in e.key and e.self_device_time_total > 0:
-                total_us += e.self_device_time_total
-                count += e.count
-        if not 1 <= count <= n:   # the trace may drop a record; it never invents one
+            for k in kernels:
+                if k in e.key and e.self_device_time_total > 0:
+                    seen[k][0] += e.self_device_time_total
+                    seen[k][1] += e.count
+        if all(1 <= count for _, count in seen.values()):
+            break
+    for k, (total_us, count) in seen.items():
+        if not 1 <= count <= n:
             raise AssertionError(f"profiler saw {count} launches of {k}, expected {n}")
-        out[k] = total_us / count / 1e3
-    return out
+    return {k: total_us / count / 1e3 for k, (total_us, count) in seen.items()}
 
 
 def call_device_ms(fn, n):
     """Mean device time (ms) of all the work one call of fn() puts on the
     card (every kernel and copy it launches), over n calls (after one
     warm-up), from one torch.profiler trace: a library call's device time,
-    on the clock of ``device_ms``."""
+    on the clock of ``device_ms``. Each kernel's mean per launch times its
+    launches per call, so that a record the trace drops biases nothing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -217,11 +238,12 @@ def call_device_ms(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+    total_us = sum(e.self_device_time_total / e.count * max(1, round(e.count / n))
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count > 0)
     if total_us <= 0:
         raise AssertionError("profiler saw no device time")
-    return total_us / n / 1e3
+    return total_us / 1e3
 
 
 def device_ms(fn, n, kernel):
@@ -235,11 +257,16 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, int_ops=(0, 0)):
     """(least time in ms, what bounds it) for moving n_bytes and doing
-    flops float operations on the card."""
-    tb, tf = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+    flops float operations and int_ops = (ALU ops, IMADs) integer ones on
+    the card. The ALU ops take the integer ALU; an IMAD issues on the FMA
+    pipe's heavy half (64 lanes per SM per clock) and a float instruction on
+    either half (128 lanes, two flops an FMA), so that pipe needs at least
+    (2 IMADs + flops) over the float rate."""
+    alu, imad = int_ops
+    tb, tf, ti = n_bytes / HBM_BYTES_PER_S, (flops + 2 * imad) / F32_FLOPS, alu / ALU_OPS
+    return max(tb, tf, ti) * 1e3, ("bytes" if tb >= max(tf, ti) else "operations")
 
 
 def k1_flops(B, L, M, dim, predict):
@@ -270,9 +297,20 @@ def k4_flops(B, D, M, dim, predict):
 
 
 PF_TICK_FLOPS = 50  # float ops of one predict tick of one particle (Box-Muller,
-                    # the motion integration, the moment sums); the generator's
-                    # integer ops are not counted
+                    # the motion integration, the moment sums)
 PF_JITTER_FLOPS = 40  # the resample jitter and moment sums per particle
+# Integer ops of one generator uniform, mix32(mix32(idx ^ key) + key) >> 8,
+# by pipe: on the ALU 7 shifts, 7 xors and the add of the key; on the FMA
+# pipe the 4 multiplies (2 per mix32). A Box-Muller normal pair draws two
+# uniforms.
+PF_UNIFORM_ALU_OPS = 15
+PF_UNIFORM_IMADS = 4
+
+
+def pf_int_ops(n_particle_ticks, nxy, nyaw):
+    """(ALU ops, IMADs) of the generator: two uniforms per noise row pair on."""
+    uniforms = n_particle_ticks * 2 * (int(nxy) + int(nyaw))
+    return uniforms * PF_UNIFORM_ALU_OPS, uniforms * PF_UNIFORM_IMADS
 
 
 def k9_flops(have, z_valid, N):
@@ -455,7 +493,17 @@ def pf_kernels_phase(dev, tl_pf):
     res["K5"] = dict(err=max(errs), ms=device_ms(k5, 30, "predict_kernel"), wall_ms=wall_ms(k5, 50),
                      plain_ms=wall_ms(lambda: PK.predict_call_multi_reference(
                          parts, par16, seeds, nxy, nyaw, nticks=nt), 5), nticks=nt,
-                     bound=bound(nbytes(parts, par16, seeds, *k5()), n * nt * PF_TICK_FLOPS))
+                     bound=bound(nbytes(parts, par16, seeds, *k5()), n * nt * PF_TICK_FLOPS,
+                                 pf_int_ops(n * nt, nxy, nyaw)))
+    # the split of K5's time: the intercept over nticks is the bank's bytes,
+    # the slope the tick loop's work per tick of 2^20 particles
+    sweep = {t: device_ms(lambda: PK.predict_call_multi(parts, par16, seeds, nxy, nyaw, nticks=t),
+                          30, "predict_kernel") for t in (0, 1, 5, 10)}
+    slope, icpt = np.polyfit(list(sweep), list(sweep.values()), 1)
+    res["K5"]["nticks_ms"] = {str(t): v for t, v in sweep.items()}
+    res["K5"]["fit"] = dict(intercept_ms=float(icpt), ms_per_tick=float(slope))
+    print("K5 over nticks: " + ", ".join(f"{t}: {v * 1e3:.2f} us" for t, v in sweep.items())
+          + f"; fit {icpt * 1e3:.2f} us + {slope * 1e3:.3f} us per tick", flush=True)
 
     # K6 == K5 at K = 1, bitwise; against its plain version
     o6, s6 = PK.predict_call(parts, par16[0], seeds[0], nxy, nyaw)
@@ -472,7 +520,8 @@ def pf_kernels_phase(dev, tl_pf):
     res["K6"] = dict(err=e6, ms=device_ms(k6, 30, "predict_kernel"), wall_ms=wall_ms(k6, 50),
                      plain_ms=wall_ms(lambda: PK.predict_call_reference(
                          parts, par16[0], seeds[0], nxy, nyaw), 10),
-                     bound=bound(nbytes(parts, par16[0], seeds[0], *k6()), n * PF_TICK_FLOPS))
+                     bound=bound(nbytes(parts, par16[0], seeds[0], *k6()), n * PF_TICK_FLOPS,
+                                 pf_int_ops(n, nxy, nyaw)))
 
     # K7 / K8 on the bank after the predict, for healthy, degenerate and
     # zero-run weights
@@ -490,12 +539,18 @@ def pf_kernels_phase(dev, tl_pf):
     jsd = torch.stack([sd[0], sd[1], sd[5]]).contiguous()
     seed = pre.noise_seeds[t_up]
     e7 = e8 = 0.0
+    k7_by = {}
     for name, w in (("healthy", w_healthy), ("degenerate", w_deg), ("zero-run", w_zr / 128)):
         m_cum = RS.systematic_counts(w, pre.res_u[t_up])
         got = PK.expand_gather_call(m_cum, bank)
         torch.cuda.synchronize()
         if not torch.equal(got, PK.expand_gather_call_reference(m_cum, bank)):
             raise AssertionError(f"K7 ({name}): gathered bank differs from the plain version")
+        k7_by[name] = dict(
+            jitter_ms=device_ms(lambda: PK.expand_gather_call(m_cum, bank, jsd, seed), 30,
+                                "gather_kernel"),
+            no_jitter_ms=device_ms(lambda: PK.expand_gather_call(m_cum, bank), 30,
+                                   "gather_kernel"))
         fused, s7 = PK.expand_gather_call(m_cum, bank, jsd, seed)
         rf, rs7 = PK.expand_gather_call_reference(m_cum, bank, jsd, seed)
         e7 = max(e7, check(bank_err(fused, rf), f"K7 jitter bank ({name})"),
@@ -516,19 +571,41 @@ def pf_kernels_phase(dev, tl_pf):
     def k8():
         return PK.jitter_moments_call(g_h, jsd, seed)
 
-    res["K7"] = dict(err=e7, ms=device_ms(k7, 30, "resample_kernel"), wall_ms=wall_ms(k7, 50),
+    # the yardstick of K7 without the jitter: torch.repeat_interleave of the
+    # bank by the counts (the same function; the port never calls it)
+    counts = torch.diff(m_h, prepend=m_h.new_zeros(1))
+    if not torch.equal(torch.repeat_interleave(bank, counts, dim=1, output_size=n), g_h):
+        raise AssertionError("repeat_interleave differs from K7 without the jitter")
+    jit_ops = pf_int_ops(n, True, True)
+    # K7's ms: all the device work of a call, its kernel and the wrapper's
+    # zero fill of the group counters (torch.zeros: a FillFunctor kernel)
+    t7 = path_ms(k7, 30, ("gather_kernel", "FillFunctor"))
+    res["K7"] = dict(err=e7, ms=sum(t7.values()), wall_ms=wall_ms(k7, 50),
+                     kernel_ms=t7["gather_kernel"],
                      plain_ms=wall_ms(lambda: PK.expand_gather_call_reference(
                          m_h, bank, jsd, seed), 10),
-                     bound=bound(nbytes(m_h, bank, jsd, *k7()), n * PF_JITTER_FLOPS))
-    res["K8"] = dict(err=e8, ms=device_ms(k8, 30, "resample_kernel"), wall_ms=wall_ms(k8, 50),
+                     bound=bound(nbytes(m_h, bank, jsd, *k7()), n * PF_JITTER_FLOPS, jit_ops),
+                     library_ms=call_device_ms(lambda: torch.repeat_interleave(
+                         bank, counts, dim=1, output_size=n), 30),
+                     no_jitter=dict(ms=k7_by["healthy"]["no_jitter_ms"],
+                                    bound=bound(nbytes(m_h, bank, g_h), 0)),
+                     by_weights=k7_by)
+    res["K8"] = dict(err=e8, ms=device_ms(k8, 30, "jitter_kernel"), wall_ms=wall_ms(k8, 50),
                      plain_ms=wall_ms(lambda: PK.jitter_moments_call_reference(
                          g_h, jsd, seed), 10),
-                     bound=bound(nbytes(g_h, jsd, *k8()), n * PF_JITTER_FLOPS))
+                     bound=bound(nbytes(g_h, jsd, *k8()), n * PF_JITTER_FLOPS, jit_ops))
     for k, v in res.items():
         print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device "
               f"({v['wall_ms']:.4f} ms per call back to back), plain {v['plain_ms']:.4f} ms, "
               f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]})"
               + (f" (nticks {v['nticks']})" if "nticks" in v else ""), flush=True)
+    k7 = res["K7"]
+    print(f"K7 (healthy weights): with the jitter {k7['ms'] * 1e3:.2f} us device per call ("
+          f"the kernel alone {k7['kernel_ms'] * 1e3:.2f} us), without "
+          f"{k7['no_jitter']['ms'] * 1e3:.2f} us (bound {k7['no_jitter']['bound'][0] * 1e3:.2f} "
+          f"us); torch.repeat_interleave {k7['library_ms'] * 1e3:.2f} us; by weights "
+          + ", ".join(f"{k} {v['jitter_ms'] * 1e3:.2f} / {v['no_jitter_ms'] * 1e3:.2f} us"
+                      for k, v in k7_by.items()), flush=True)
     print("generator: kernel uniforms bitwise equal to torch; K6 == K5(K=1) and "
           "K7(jitter) == K8(K7) bitwise; K7 ancestors exact on healthy, degenerate "
           "and zero-run weights", flush=True)
@@ -1047,6 +1124,124 @@ def slam256_kernels_phase(dev, cfg, params, tl):
           f"one-kernel schedule {v['ms']:.4f} ms (max err vs plain {v['err']:.3e}, bound "
           f"{v['bound'][0]:.4f} ms, {v['bound'][1]}); streamed == one-kernel: Sigma, mu and band "
           f"bitwise, Sigma exactly symmetric ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return res
+
+
+# phase 3c's shapes (L, M, sensor, Σ form): L + M = 1025 and 2048 rows, past
+# the register JV; L = 1200, past the shared memory of the kernel before it;
+# L = 900 at M = 64, whose tables alone do not fit
+BIG_JV_CASES = ((1017, 8, "mbes", "rows"), (1017, 8, "fls", "full"), (2040, 8, "mbes", "full"),
+                (2040, 8, "fls", "rows"), (1200, 8, "mbes", "full"), (900, 64, "mbes", "rows"))
+
+
+def padded_da_case(S, ms_p, fm_sigma, a8, z, zm, params, cfg, Lp, Mp, sensor, form, dev):
+    """K1's arguments for the fleet state ms_p (L slots) padded with
+    inactive slots to Lp and with masked detections to Mp: pose rows (and
+    the full Σ for ``form == "full"``), μ, band and the active flags grow
+    with zeros; FLS takes pixel detections of the mapped landmarks."""
+    import torch
+
+    B, L = ms_p.active.shape
+    D, Dp = 6 + 3 * L, 6 + 3 * Lp
+    mu = torch.zeros(B, Dp, device=dev)
+    mu[:, :D] = ms_p.mu
+    rows = torch.zeros(B, 8, Dp, device=dev)
+    rows[:, :, :D] = ms_p.rows
+    band = torch.zeros(B, 24, Lp, device=dev)
+    band[:, :, :L] = ms_p.band
+    active = torch.zeros(B, Lp, dtype=torch.bool, device=dev)
+    active[:, :L] = ms_p.active
+    if sensor == "fls":
+        params = fls_params(S, cfg, dev)
+        z, zm = fls_detections(S, ms_p.mu, ms_p.active, params, z.shape[1], dev)
+        spec, q = S.FLS, torch.diagonal(params.Q_fls)
+        lam, mh = params.lambda_fls, cfg.mhl_dist_fls
+    else:
+        spec, q, lam, mh = S.MBES, torch.diagonal(params.Q_mbes), params.lambda_mbes, cfg.mhl_dist_mbes
+    zp = torch.zeros(B, Mp, 3, device=dev)
+    zp[:, :z.shape[1]] = z
+    zmp = torch.zeros(B, Mp, dtype=torch.bool, device=dev)
+    zmp[:, :z.shape[1]] = zm
+    Sig = None
+    if form == "full":
+        Sig = torch.zeros(B, Dp, Dp, device=dev)
+        Sig[:, :D, :D] = fm_sigma
+    args = (mu[:, 0:6].contiguous(), ms_p.n_active, active, mu[:, 6:].reshape(B, Lp, 3).contiguous(),
+            Sig, zp, zmp, q, lam, cfg.outlier_cost, mh, torch.tensor(spec.new_lm_cov, device=dev))
+    kw = dict(sensor=sensor, A=a8[:, 0:6, 0:6].contiguous(), r_full=a8[:, 0:6, 8:14].contiguous(),
+              band=band, pose_rows=rows if form == "rows" else None)
+    if sensor == "fls":
+        kw.update(r_sb=params.r_fls_base, t_sb=params.t_fls_base)
+    return args, kw, zmp, spec.dim
+
+
+def big_jv_phase(dev, cfg, params, tl):
+    """Phase 3c: K1 (pose-rows and full-Σ forms, MBES and FLS) and K11 past
+    the register JV (L + M > 1024 cost rows) and past the block's shared
+    memory, on the L=256 fleet's state (B=4) padded with inactive slots,
+    against their plain versions; on the unpadded state the scratch form
+    against the register form, bit for bit."""
+    import torch
+
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
+
+    t0 = time.perf_counter()
+    B, L, M = 4, cfg.max_landmarks, cfg.max_obs
+    D = 6 + 3 * L
+    sub = tl.map(lambda x: x[:B])
+    fm, _ = S.run_fleet(sub.map(lambda x: x[:, :T_WARM]), params, cfg, update_mode="marginal",
+                        graph=False)
+    odom = sub.channels["odom"]
+    pose_t = S._odom_pose(odom.value[:, T_WARM]).contiguous()
+    valid_t = odom.valid[:, T_WARM].contiguous()
+    rows = torch.zeros(B, 8, D, device=dev)
+    rows[:, 0:6] = fm.Sigma[:, 0:6]
+    ms = S.MarginalFleetState(mu=fm.mu, rows=rows, band=S.initial_band(fm.Sigma, L).contiguous(),
+                              active=fm.active, n_active=fm.n_active, mu_auv_odom=fm.mu_auv_odom)
+    ms_p, a8 = S._fleet_predict_marginal(ms, pose_t, valid_t, params, predict_rows=False)
+    ev = sub.events["mbes"]
+    z = ev.value[:, T_WARM].contiguous()
+    zm = (ev.mask[:, T_WARM] & valid_t[:, None]).contiguous()
+
+    def case(Lp, Mp, sensor, form):
+        return padded_da_case(S, ms_p, fm.Sigma, a8, z, zm, params, cfg, Lp, Mp, sensor, form, dev)
+
+    # where both forms run, the scratch form is the register form bit for bit
+    n_bit = 0
+    for sensor, form in (("mbes", "rows"), ("fls", "full")):
+        args, kw, _, _ = case(L, M, sensor, form)
+        reg = K1.da_lanes(*args, **kw)
+        cost = K1.da_tables_reference(*args, **kw)[0].contiguous()
+        reg11 = K1.hungarian_lanes(cost)
+        K1.FORCE_SCRATCH = True
+        try:
+            scr = K1.da_lanes(*args, **kw)
+            scr11 = K1.hungarian_lanes(cost)
+        finally:
+            K1.FORCE_SCRATCH = False
+        torch.cuda.synchronize()
+        if not (all(bitwise(a, b) for a, b in zip(reg, scr)) and torch.equal(reg11, scr11)):
+            raise AssertionError(f"K1/K11 at L={L} ({sensor}, {form}): the scratch form differs "
+                                 "from the register form")
+        n_bit += 1
+    res = {"K1": {}, "K11": {}}
+    for Lp, Mp, sensor, form in BIG_JV_CASES:
+        args, kw, zmp, dim = case(Lp, Mp, sensor, form)
+        key = f"L{Lp}_M{Mp}_{sensor}_{form}"
+        r, got = k1_case(f"past the register JV ({sensor}, {form})", args, kw, zmp, dim)
+        res["K1"][key] = dict(ms=r["ms"], max_abs_err=r["err"], bound_ms=r["bound"][0],
+                              bound_by=r["bound"][1], shape=list(r["shape"]))
+        if sensor == "mbes":
+            cost = K1.da_tables_reference(*args, **kw)[0].contiguous()
+            r11 = k11_case(f"on the L={Lp} M={Mp} DA tables", cost, got[0])
+            res["K11"][f"R{Lp + Mp}_C{Mp}"] = dict(ms=r11["ms"], max_abs_err=r11["err"],
+                                                   bound_ms=r11["bound"][0],
+                                                   bound_by=r11["bound"][1],
+                                                   plain_ms=r11["plain_ms"])
+    print(f"K1/K11 past the register JV: discrete outputs exact on {len(res['K1'])} K1 and "
+          f"{len(res['K11'])} K11 shapes; scratch form == register form bitwise at L={L} "
+          f"({n_bit} forms) ({time.perf_counter() - t0:.1f} s)", flush=True)
     return res
 
 
@@ -1581,6 +1776,8 @@ def main():
 
     # --- 3b. the slice-3 kernels at L=256 ---------------------------------------
     k256 = slam256_kernels_phase(dev, cfg256, params256, tl256)
+    # --- 3c. K1 and K11 past the register JV --------------------------------------
+    big = big_jv_phase(dev, cfg256, params256, tl256)
 
     # --- 4. the slice against its plain version ------------------------------
     t0 = time.perf_counter()
@@ -1679,7 +1876,7 @@ def main():
         entry("da_lanes", "slam_da.cu", "slam_da_kernels.py:581", launches["da_lanes"],
               max([k1_err, k1f_err, k1_b1["err"]] + [v["max_abs_err"] for v in k1_l256.values()]),
               k1_ms, k1_plain_ms, k1_bound, fls=brief(k1f), one_mission=brief(k1_b1),
-              jv_alone=brief(k11_64), L256=k1_l256,
+              jv_alone=brief(k11_64), L256=k1_l256, past_register_jv=big["K1"],
               launches_by_path={"slam-fleet128-L64": launches["da_lanes"],
                                 "slam-fleet32-L256-full": l256["full"]["da_lanes"],
                                 "slam-fleet32-L256-marginal": l256["marginal"]["da_lanes"],
@@ -1701,7 +1898,10 @@ def main():
               M16=dict(ms=k256["K4_M16"]["ms"], bound_ms=k256["K4_M16"]["bound"][0],
                        bound_by=k256["K4_M16"]["bound"][1], max_abs_err=k256["K4_M16"]["err"])),
     ] + [
-        entry(name, src, rep, cnt[name], pk[k]["err"], pk[k]["ms"], pk[k]["plain_ms"], pk[k]["bound"])
+        entry(name, src, rep, cnt[name], pk[k]["err"], pk[k]["ms"], pk[k]["plain_ms"], pk[k]["bound"],
+              pk[k].get("library_ms"), **{x: pk[k][x] for x in ("nticks_ms", "fit", "no_jitter",
+                                                                 "by_weights", "kernel_ms")
+                                          if x in pk[k]})
         for k, name, src, rep, cnt in (
             ("K5", "predict_call_multi", "pf_predict.cu", "pf_kernels.py:820", pf_launch),
             ("K6", "predict_call", "pf_predict.cu", "pf_kernels.py:865", pt_launch),
@@ -1711,7 +1911,7 @@ def main():
         entry("hungarian_lanes", "slam_da.cu", "slam_da_kernels.py:616",
               l256["full"]["hungarian_lanes"], k256["K11"]["err"], k256["K11"]["ms"],
               k256["K11"]["plain_ms"], k256["K11"]["bound"], shape=list(k256["K11"]["shape"]),
-              L64_tables=brief(k11_64)),
+              L64_tables=brief(k11_64), past_register_jv=big["K11"]),
         # K12 at the L=64 headline (launches: phases 5-6), and at L=256
         entry("symmetric_downdate", "slam_downdate.cu", "slam_kernels.py:807",
               launches["symmetric_downdate"], max(k12_64["err"], k12_256["err"]), k12_64["ms"],

@@ -53,7 +53,20 @@
 // same tie rule as ops/assignment.hungarian: the slack is cost − u[i0] − v[r]
 // in that order; on equal slack the lowest row wins, within a lane by keeping
 // the first minimum, across lanes by the second reduction). Bound: latency
-// of the serial Dijkstra steps; the table is read once. R ≤ 1024 rows.
+// of the serial Dijkstra steps; the table is read once.
+//
+// Any number of rows. The register JV holds at most 32 rows per lane
+// (R ≤ kRegRows = 1024). Past that, or where the tables do not fit in the
+// block's shared memory, both kernels take their SCRATCH form (a template
+// parameter chosen at launch from the shape, never by a retry; a launcher's
+// force_scratch takes it at any shape, to hold the two forms against each
+// other): jv_scratch
+// keeps every row's dual, slack, predecessor and used flag in a per-mission
+// device scratch buffer, and K1 its L- and R-sized tables (H, S⁻¹, ĥ, the
+// cost table, the candidates, p) there too, K11 its column-major table.
+// jv_scratch does the register form's arithmetic per entry in the same order
+// and keeps its tie rule (a lane scans its rows upwards and keeps the first
+// least slack), so the two forms give the same bits wherever both can run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +76,7 @@ namespace {
 constexpr float kFlsScale = 400.0f / 17.0f;  // px per metre
 constexpr float kInf = 1e30f;
 constexpr int kMaxThreads = 384;
-constexpr int kMaxRows = 1024;  // JV rows: 32 lanes × at most 32 rows each
+constexpr int kRegRows = 1024;  // the register JV's rows: 32 lanes × at most 32 each
 constexpr unsigned kFull = 0xffffffffu;
 
 // Point Jacobian column c of the 3x9 [Hp | Ha | Hl] for a base-frame point
@@ -284,7 +297,7 @@ __device__ void jv_regs(const float* cost, int R, int C, float* u, int* p) {
   if (UREG && lane < C) u[lane] = ureg;
 }
 
-// jv_regs with the fewest rows per lane that hold R (R ≤ kMaxRows); u in
+// jv_regs with the fewest rows per lane that hold R (R ≤ kRegRows); u in
 // registers when C ≤ 32.
 __device__ void jv_warp(const float* cost, int R, int C, float* u, int* p) {
   if (C > 32) {
@@ -304,6 +317,88 @@ __device__ void jv_warp(const float* cost, int R, int C, float* u, int* p) {
     case 10: case 11: case 12: case 13: case 14: case 15: case 16:
       jv_regs<16, true>(cost, R, C, u, p); break;
     default: jv_regs<32, true>(cost, R, C, u, p); break;
+  }
+}
+
+// jv_regs with every row's state in device memory (any R): ws holds the
+// row duals v, the slacks minv, the predecessors way and the used flags, 4R
+// words; row r is read and written only by lane r % 32, like its registers in
+// jv_regs. Per step each lane scans its rows upwards and keeps the first
+// least slack (jv_regs' tree keeps the same one), the warp reductions, the
+// dual update and the augmentation are jv_regs', so every entry gets the same
+// operations in the same order. The column duals u are in memory; a used
+// row's lane adds delta to its column's dual (each column is held by at most
+// one row), lane 0 to the root's column c.
+__device__ void jv_scratch(const float* cost, int R, int C, float* u, int* p, float* ws) {
+  const int lane = threadIdx.x & 31;
+  float* v = ws;
+  float* minv = ws + R;
+  int* way = reinterpret_cast<int*>(ws + 2 * (size_t)R);
+  int* used = way + R;
+  for (int r = lane; r < R; r += 32) v[r] = 0.0f;
+  for (int c = lane; c < C; c += 32) u[c] = 0.0f;
+  for (int r = lane; r <= R; r += 32) p[r] = -1;
+  __syncwarp();
+  for (int c = 0; c < C; ++c) {
+    for (int r = lane; r < R; r += 32) {
+      minv[r] = kInf;
+      way[r] = R;
+      used[r] = 0;
+    }
+    if (lane == 0) p[R] = c;
+    int j0 = R, i0 = c;
+    for (int step = 0; step < R; ++step) {  // each step uses a new row
+      const float ui0 = u[i0];
+      const float* col = cost + (size_t)i0 * R;
+      float best = 3.0e38f;  // above every slack (unused rows hold < 1e30)
+      int brow = lane;
+      for (int r = lane; r < R; r += 32) {
+        if (used[r]) continue;
+        const float cur = col[r] - ui0 - v[r];
+        float mv = minv[r];
+        if (cur < mv) {
+          mv = cur;
+          minv[r] = cur;
+          way[r] = j0;
+        }
+        if (mv < best) {
+          best = mv;
+          brow = r;
+        }
+      }
+      const float bz = best == 0.0f ? 0.0f : best;
+      const unsigned bits = __float_as_uint(bz);
+      const unsigned key = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+      const unsigned kmin = __reduce_min_sync(kFull, key);
+      const int j1 = (int)__reduce_min_sync(kFull, key == kmin ? (unsigned)brow : 0xffffffffu);
+      const float delta = __uint_as_float((kmin & 0x80000000u) ? (kmin & 0x7fffffffu) : ~kmin);
+      for (int r = lane; r < R; r += 32) {
+        if (used[r]) {
+          v[r] = v[r] - delta;
+          u[p[r]] += delta;
+        } else {
+          minv[r] = minv[r] - delta;
+        }
+      }
+      if (lane == 0) u[c] += delta;
+      if (lane == (j1 & 31)) used[j1] = 1;
+      const int pj1 = p[j1];
+      j0 = j1;
+      if (pj1 < 0) break;  // reached a free row
+      i0 = pj1;
+      __syncwarp();  // u's update before the next step reads u[i0]
+    }
+    __syncwarp();
+    if (lane == 0) {  // augment along the predecessor chain to the root
+      int j = j0;
+      for (int hop = 0; j != R && hop < R; ++hop) {
+        const int j1 = way[j];
+        p[j] = p[j1];
+        j = j1;
+      }
+      p[R] = -1;
+    }
+    __syncwarp();
   }
 }
 
@@ -336,14 +431,20 @@ struct Shared {
   int* flags;    // M: do | add << 1
 };
 
-__host__ __device__ inline size_t shared_floats(int L, int M, int dim) {
+// pose .. z: always in shared memory (cp.async targets)
+__host__ __device__ inline size_t small_floats(int M) {
+  return 6 + 32 + 9 + 27 + 7 * 36 + (size_t)M * 3;
+}
+
+// H .. flags: in shared memory after the small part, or in the SCRATCH form
+// in the mission's device scratch
+__host__ __device__ inline size_t table_floats(int L, int M, int dim) {
   const int R = L + M;
-  return 6 + 32 + 9 + 27 + 7 * 36 + (size_t)M * 3 +
-         (size_t)L * (dim * 9 + dim * dim + dim) + (size_t)R * M +
+  return (size_t)L * (dim * 9 + dim * dim + dim) + (size_t)R * M +
          (size_t)M * (dim * 9 + dim * dim + dim + 3) + M + (R + 1) + 4 * (size_t)M;
 }
 
-__device__ inline Shared carve(float* f, int L, int M, int dim) {
+__device__ inline Shared carve(float* f, float* t, int L, int M, int dim) {
   Shared s;
   const int R = L + M;
   s.pose = f; f += 6;
@@ -355,7 +456,8 @@ __device__ inline Shared carve(float* f, int L, int M, int dim) {
   s.Sraw = f; f += 36;
   s.st2 = f; f += 108;
   s.Spp = f; f += 36;
-  s.z = f; f += M * 3;
+  s.z = f;
+  f = t;
   s.H = f; f += L * dim * 9;
   s.Si = f; f += L * dim * dim;
   s.zh = f; f += L * dim;
@@ -552,9 +654,10 @@ __device__ inline void candidate(int m, int L, int M, const Shared& s) {
   for (int c = 0; c < M; ++c) s.cost[c * R + L + m] = (c == m) ? mh : outl;
 }
 
-template <bool FLS, bool PREDICT>
+template <bool FLS, bool PREDICT, bool SCRATCH>
 __global__ void __launch_bounds__(kMaxThreads)
 da_kernel(int L, int M, int D, long long sig_stride, int use_band,
+          float* __restrict__ scratch, long long scratch_stride,
           const float* __restrict__ pose6, const int* __restrict__ n_active,
           const bool* __restrict__ active, const float* __restrict__ lm_pos,
           const float* __restrict__ Sigma, const float* __restrict__ z,
@@ -567,8 +670,9 @@ da_kernel(int L, int M, int D, long long sig_stride, int use_band,
           bool* __restrict__ add_out, int* __restrict__ slot_out) {
   constexpr int DIM = FLS ? 2 : 3;
   extern __shared__ float smem[];
-  Shared s = carve(smem, L, M, DIM);
   const int b = blockIdx.x;
+  float* mine = SCRATCH ? scratch + (size_t)b * scratch_stride : nullptr;
+  Shared s = carve(smem, SCRATCH ? mine : smem + small_floats(M), L, M, DIM);
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int R = L + M;
@@ -635,7 +739,10 @@ da_kernel(int L, int M, int D, long long sig_stride, int use_band,
 
   // --- 2. exact assignment and the capacity-denial prefix, on warp 0 ----------
   if (tid < 32) {
-    jv_warp(s.cost, R, M, s.u, s.p);
+    if (SCRATCH)
+      jv_scratch(s.cost, R, M, s.u, s.p, mine + table_floats(L, M, DIM));
+    else
+      jv_warp(s.cost, R, M, s.u, s.p);
     for (int r = tid; r < R; r += 32)
       if (s.p[r] >= 0) s.ctr[s.p[r]] = r;
     __syncwarp();
@@ -690,17 +797,48 @@ da_kernel(int L, int M, int D, long long sig_stride, int use_band,
   }
 }
 
-template <bool FLS, bool PREDICT>
+// The opt-in shared memory of a block on `device` (cached per device).
+int max_shared(int device) {
+  static int cache[64] = {0};
+  if (device < 0 || device >= 64) return 48 * 1024;
+  if (cache[device] == 0) {
+    int v = 0;
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+      return 48 * 1024;
+    cache[device] = v;
+  }
+  return cache[device];
+}
+
+// K1's form from its shape: 0 = the register JV with the tables in shared
+// memory, else the SCRATCH form's device scratch per mission (floats): the
+// tables, then the JV's 4R row words.
+long long da_scratch_floats(int device, int L, int M, int dim, bool force) {
+  const int R = L + M;
+  const size_t smem = (small_floats(M) + table_floats(L, M, dim)) * sizeof(float);
+  if (!force && R <= kRegRows && smem <= (size_t)max_shared(device)) return 0;
+  return (long long)(table_floats(L, M, dim) + 4 * (size_t)R);
+}
+
+// K11's: the column-major table, u, p, the columns' rows, then 4R row words.
+long long jv_scratch_floats(int device, int R, int C, bool force) {
+  const size_t smem = ((size_t)R * C + C) * sizeof(float) + (R + 1 + (size_t)C) * sizeof(int);
+  if (!force && R <= kRegRows && smem <= (size_t)max_shared(device)) return 0;
+  return (long long)((size_t)R * C + C + (R + 1) + C + 4 * (size_t)R);
+}
+
+template <bool FLS, bool PREDICT, bool SCRATCH>
 cudaError_t launch(int B, int L, int M, int D, long long sig_stride, int use_band,
-                   cudaStream_t stream,
+                   float* scratch, long long scratch_stride, cudaStream_t stream,
                    const float* pose6, const int* n_active, const bool* active,
                    const float* lm_pos, const float* Sigma, const float* z,
                    const bool* z_mask, const float* par, const float* A,
                    const float* r_full, const float* band, int* ctr, float* H_sel,
                    float* SinvH, float* nu_sel, float* cand, bool* do_out,
                    bool* add_out, int* slot) {
-  const size_t smem = shared_floats(L, M, FLS ? 2 : 3) * sizeof(float);
-  auto kern = da_kernel<FLS, PREDICT>;
+  const size_t smem = (small_floats(M) + (SCRATCH ? 0 : table_floats(L, M, FLS ? 2 : 3))) *
+                     sizeof(float);
+  auto kern = da_kernel<FLS, PREDICT, SCRATCH>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -708,28 +846,40 @@ cudaError_t launch(int B, int L, int M, int D, long long sig_stride, int use_ban
   }
   const int threads = ((L + M + 31) / 32) * 32;
   kern<<<B, threads < kMaxThreads ? threads : kMaxThreads, smem, stream>>>(
-      L, M, D, sig_stride, use_band, pose6, n_active, active, lm_pos, Sigma, z, z_mask,
+      L, M, D, sig_stride, use_band, scratch, scratch_stride, pose6, n_active, active, lm_pos, Sigma, z, z_mask,
       par, A, r_full, band, ctr, H_sel, SinvH, nu_sel, cand, do_out, add_out, slot);
   return cudaGetLastError();
 }
 
 // K11: one warp per mission solves its (R, C) table (row-major in device
-// memory, [r*C + c]; staged column-major).
+// memory, [r*C + c]; staged column-major, into shared memory or, in the
+// SCRATCH form, into the mission's device scratch).
+template <bool SCRATCH>
 __global__ void __launch_bounds__(32)
-jv_kernel(int R, int C, const float* __restrict__ cost, int* __restrict__ col_to_row) {
+jv_kernel(int R, int C, const float* __restrict__ cost, int* __restrict__ col_to_row,
+          float* __restrict__ scratch, long long scratch_stride) {
   extern __shared__ float smem[];
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
-  float* tab = smem;                 // R*C, [c*R + r]
+  float* tab = SCRATCH ? scratch + (size_t)b * scratch_stride : smem;  // R*C, [c*R + r]
   float* u = tab + (size_t)R * C;    // C
   int* p = reinterpret_cast<int*>(u + C);  // R+1
   int* ctr = p + R + 1;              // C
   const float* cb = cost + (size_t)b * R * C;
-  for (int k = lane; k < R * C; k += 32) cp_async4(&tab[(k % C) * R + k / C], cb + k);
+  for (int k = lane; k < R * C; k += 32) {
+    float* dst = &tab[(size_t)(k % C) * R + k / C];
+    if (SCRATCH)
+      *dst = cb[k];
+    else
+      cp_async4(dst, cb + k);
+  }
   for (int c = lane; c < C; c += 32) ctr[c] = -1;
   cp_async_wait_all();
   __syncwarp();
-  jv_warp(tab, R, C, u, p);
+  if (SCRATCH)
+    jv_scratch(tab, R, C, u, p, reinterpret_cast<float*>(ctr + C));
+  else
+    jv_warp(tab, R, C, u, p);
   for (int r = lane; r < R; r += 32)
     if (p[r] >= 0) ctr[p[r]] = r;
   __syncwarp();
@@ -738,49 +888,70 @@ jv_kernel(int R, int C, const float* __restrict__ cost, int* __restrict__ col_to
 
 }  // namespace
 
-extern "C" int slam_da_launch(int device, void* stream, int B, int L, int M,
-                              int D, int pose_rows, int fls, int predict,
-                              int use_band,
-                              const void* pose6, const void* n_active,
-                              const void* active, const void* lm_pos,
-                              const void* Sigma, const void* z,
-                              const void* z_mask, const void* par, const void* A,
-                              const void* r_full, const void* band, void* ctr,
-                              void* H_sel, void* SinvH, void* nu_sel, void* cand,
-                              void* do_out, void* add_out, void* slot) {
+// Both launchers return 0 once launched or a cudaError_t (> 0). Where the
+// shape (or force_scratch) takes the scratch form and scratch is null, they
+// launch nothing and return minus the floats per mission it needs: the
+// caller passes B times that many again.
+extern "C" long long slam_da_launch(int device, void* stream, int B, int L, int M,
+                                    int D, int pose_rows, int fls, int predict,
+                                    int use_band, int force_scratch, void* scratch,
+                                    const void* pose6, const void* n_active,
+                                    const void* active, const void* lm_pos,
+                                    const void* Sigma, const void* z,
+                                    const void* z_mask, const void* par, const void* A,
+                                    const void* r_full, const void* band, void* ctr,
+                                    void* H_sel, void* SinvH, void* nu_sel, void* cand,
+                                    void* do_out, void* add_out, void* slot) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (B < 1 || L < 1 || M < 1 || L + M > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (B < 1 || L < 1 || M < 1) return (int)cudaErrorInvalidValue;
   if (pose_rows && !use_band) return (int)cudaErrorInvalidValue;  // Sll needs the band
   const long long sig_stride = pose_rows ? 8LL * D : (long long)D * D;
+  const long long per = da_scratch_floats(device, L, M, fls ? 2 : 3, force_scratch != 0);
+  if (per > 0 && scratch == nullptr) return -per;
+  float* scr = (float*)scratch;
   auto st = static_cast<cudaStream_t>(stream);
 #define SLAM_DA_ARGS                                                          \
-  B, L, M, D, sig_stride, use_band, st, (const float*)pose6, (const int*)n_active,        \
+  B, L, M, D, sig_stride, use_band, scr, per, st, (const float*)pose6, (const int*)n_active, \
       (const bool*)active, (const float*)lm_pos, (const float*)Sigma,         \
       (const float*)z, (const bool*)z_mask, (const float*)par,                \
       (const float*)A, (const float*)r_full, (const float*)band, (int*)ctr,   \
       (float*)H_sel, (float*)SinvH, (float*)nu_sel, (float*)cand,             \
       (bool*)do_out, (bool*)add_out, (int*)slot
-  if (fls)
-    e = predict ? launch<true, true>(SLAM_DA_ARGS) : launch<true, false>(SLAM_DA_ARGS);
-  else
-    e = predict ? launch<false, true>(SLAM_DA_ARGS) : launch<false, false>(SLAM_DA_ARGS);
+  if (per > 0) {
+    if (fls)
+      e = predict ? launch<true, true, true>(SLAM_DA_ARGS) : launch<true, false, true>(SLAM_DA_ARGS);
+    else
+      e = predict ? launch<false, true, true>(SLAM_DA_ARGS) : launch<false, false, true>(SLAM_DA_ARGS);
+  } else if (fls) {
+    e = predict ? launch<true, true, false>(SLAM_DA_ARGS) : launch<true, false, false>(SLAM_DA_ARGS);
+  } else {
+    e = predict ? launch<false, true, false>(SLAM_DA_ARGS) : launch<false, false, false>(SLAM_DA_ARGS);
+  }
 #undef SLAM_DA_ARGS
   return (int)e;
 }
 
-extern "C" int hungarian_lanes_launch(int device, void* stream, int B, int R, int C,
-                                      const void* cost, void* col_to_row) {
+extern "C" long long hungarian_lanes_launch(int device, void* stream, int B, int R, int C,
+                                            const void* cost, void* col_to_row, int force_scratch,
+                                            void* scratch) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (B < 1 || C < 1 || C > R || R > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (B < 1 || C < 1 || C > R || (long long)R * C > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const long long per = jv_scratch_floats(device, R, C, force_scratch != 0);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (per > 0) {
+    if (scratch == nullptr) return -per;
+    jv_kernel<true><<<B, 32, 0, st>>>(R, C, (const float*)cost, (int*)col_to_row,
+                                      (float*)scratch, per);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = ((size_t)R * C + C) * sizeof(float) + (R + 1 + (size_t)C) * sizeof(int);
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(jv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(jv_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  jv_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      R, C, (const float*)cost, (int*)col_to_row);
+  jv_kernel<false><<<B, 32, smem, st>>>(R, C, (const float*)cost, (int*)col_to_row, nullptr, 0);
   return (int)cudaGetLastError();
 }

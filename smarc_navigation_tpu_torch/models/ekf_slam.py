@@ -334,11 +334,19 @@ def data_associate_update(
     params: SlamParams,
     cfg: EKFSlamConfig,
     sensor: SensorSpec,
+    solver: str = "device",
     update_mode: str = "auto",
 ) -> Tuple[SlamState, torch.Tensor]:
-    """One batch-DA + sequential-update pass. Returns (state, matched)."""
+    """One batch-DA + sequential-update pass. Returns (state, matched).
+
+    ``solver``: ``"device"`` solves the assignment with the exact torch JV
+    (``assignment.hungarian``); any other value on the host with scipy
+    (``assignment.hungarian_host``), as the reference's host solver."""
     cost, staged = da_stage(state, z, z_mask, params, cfg, sensor)
-    col_to_row = assignment.hungarian(cost)
+    if solver == "device":
+        col_to_row = assignment.hungarian(cost)
+    else:
+        col_to_row = assignment.hungarian_host(cost)
     return da_commit(state, col_to_row, staged, z, z_mask, params, cfg,
                      sensor, update_mode)
 
@@ -508,6 +516,7 @@ def step(
     params: SlamParams,
     state: SlamState,
     tick,
+    solver: str = "device",
     update_mode: str = "auto",
 ):
     """One SLAM tick (``ekf_slam.cpp:296-350``): consume latest odometry,
@@ -519,7 +528,7 @@ def step(
     def run_pass(st, ev, sensor):
         if bool(ev.mask.any()):
             return data_associate_update(st, ev.value, ev.mask, params, cfg,
-                                         sensor, update_mode)
+                                         sensor, solver, update_mode)
         return st, torch.full(ev.mask.shape, -1, dtype=torch.int32,
                               device=ev.mask.device)
 
@@ -553,6 +562,7 @@ def run(
     params: SlamParams,
     cfg: EKFSlamConfig = EKFSlamConfig(),
     state0: SlamState | None = None,
+    solver: str = "device",
     update_mode: str = "auto",
 ):
     """Single-mission replay over a tensor-leaved Timeline -> (final state,
@@ -560,7 +570,7 @@ def run(
     s0 = init_state(cfg, device=timeline.ticks.device) if state0 is None else state0
     state, outs = s0, []
     for k in range(timeline.num_ticks):
-        state, out = step(cfg, params, state, timeline.slice_tick(k), update_mode)
+        state, out = step(cfg, params, state, timeline.slice_tick(k), solver, update_mode)
         outs.append(out)
     return state, _stack_outputs(outs)
 
@@ -599,9 +609,12 @@ def pass_consts(params: SlamParams, cfg: EKFSlamConfig, sensor: SensorSpec) -> P
 
 def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
                   cfg: EKFSlamConfig, sensor: SensorSpec = None,
-                  a8=None, band=None, consts: PassConsts = None, streamed: bool = True):
+                  a8=None, valid=None, band=None, consts: PassConsts = None,
+                  streamed: bool = True):
     """Fleet DA pass (MBES or FLS): DA kernel (K1) + fleet update kernel
     (K2). state_b is a batched SlamState; z_b (B, M, 3), mask_b (B, M).
+    ``valid`` is accepted and ignored, as in the reference (the odometry
+    gate is folded into ``a8``).
 
     With ``a8`` given (see ``_fleet_predict``), state_b.Sigma is the RAW
     (pre-predict) covariance and both kernels apply the motion predict to
@@ -893,12 +906,13 @@ def _fleet_predict_marginal(ms: MarginalFleetState, odom_pose, valid,
 
 def da_lanes_pass_marginal(ms: MarginalFleetState, z_b, mask_b,
                            params: SlamParams, cfg: EKFSlamConfig,
-                           sensor: SensorSpec = None, a8=None,
+                           sensor: SensorSpec = None, a8=None, valid=None,
                            consts: PassConsts = None):
     """Fleet DA pass on the marginal carry: K1 reads Spp/Spl from the pose
     rows and Sll from the band; the update is K4
     (``slam_kernels.sequential_update_marginal_fleet``). ``consts``
-    (``pass_consts``) is made here when not given."""
+    (``pass_consts``) is made here when not given; ``valid`` is accepted and
+    ignored, as in the reference."""
     sensor = MBES if sensor is None else sensor
     c = pass_consts(params, cfg, sensor) if consts is None else consts
     B = ms.mu.shape[0]

@@ -8,10 +8,17 @@ identical association decisions on identical cost tables. It is a host loop
 with data-dependent control flow: the table is solved on the CPU and the
 result returned on the table's device. The fleet path never calls it — the
 DA kernel (``ops.slam_da_kernels``) runs its own JV on the card.
+
+``hungarian_host`` is the reference's host solver (``solver="host"`` of
+``ekf_slam``): scipy's ``linear_sum_assignment`` on the table in float64.
+It finds the same optimum; where several assignments share it, it may pick
+another one than ``hungarian`` (the reference's host path tries its native
+JV first, which this package does not build yet).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _INF = 1e30
@@ -78,6 +85,20 @@ def hungarian(cost: torch.Tensor) -> torch.Tensor:
     rows = torch.nonzero(p[:R] >= 0).flatten()
     col_to_row[p[rows]] = rows.to(torch.int32)
     return col_to_row.to(device)
+
+
+def hungarian_host(cost: torch.Tensor) -> torch.Tensor:
+    """Exact min-cost assignment solved on the host by scipy in float64.
+
+    cost: (R, C). Returns col_to_row (C,) int32 on cost's device, -1 for a
+    column left unassigned (only where C > R)."""
+    from scipy.optimize import linear_sum_assignment
+
+    c = cost.detach().to("cpu", torch.float64).numpy()
+    rows, cols = linear_sum_assignment(c)
+    out = np.full(c.shape[1], -1, np.int32)
+    out[cols] = rows.astype(np.int32)
+    return torch.from_numpy(out).to(cost.device)
 
 
 def assignment_cost(cost: torch.Tensor, col_to_row: torch.Tensor) -> torch.Tensor:

@@ -43,7 +43,7 @@ from ..utils.geometry import rpy_from_quat, wrap_angle
 from . import resampling
 
 N_SUMS = 8          # sx, sy, sxx, syy, sxy, s_sin, s_cos, count
-SUM_GROUP = 1024    # particles per moment partial (one CUDA block: 256 threads x 4)
+SUM_GROUP = 1024    # particles per moment partial (256 threads x 4 particles)
 MAX_K = 64          # ticks per K5 call (per-tick parameters live in shared memory)
 
 _M32 = 0xFFFFFFFF
@@ -371,7 +371,7 @@ def _resample_lib():
     fn = lib.pf_resample_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return fn
 
@@ -395,11 +395,18 @@ def _resample_launch(m_cum, parts, jitter_sd, seed, seed_off, what):
     out = torch.empty_like(parts)
     sums = (torch.empty((N_SUMS, n_partials(n)), dtype=torch.float32, device=dev)
             if jitter else None)
+    # K7's scratch: the ancestors of its first phase, per 1024-slot group the
+    # count of ancestors written (its second phase waits for a full one), and
+    # the count of first-phase blocks that are through
+    gather = m_cum is not None
+    anc = torch.empty(n, dtype=torch.int32, device=dev) if gather else None
+    ready = torch.zeros(n_partials(n) + 1, dtype=torch.int32, device=dev) if gather else None
     P = _tensors.ptr
     rc = _resample_lib()(
         _tensors.device_index(dev),
-        _tensors.stream(dev), n, rows, int(m_cum is not None), int(jitter),
-        P(m_cum), P(parts), P(jitter_sd), P(seed), int(seed_off), P(out), P(sums))
+        _tensors.stream(dev), n, rows, int(gather), int(jitter),
+        P(m_cum), P(parts), P(jitter_sd), P(seed), int(seed_off), P(out), P(sums), P(anc),
+        P(ready))
     _build.check(rc, what)
     return (out, sums) if jitter else out
 

@@ -8,15 +8,18 @@ Jonker-Volgenant assignment and the per-detection selection) for CUDA
 tensors, and takes its plain PyTorch version ``da_lanes_reference`` for CPU
 tensors. It replaces the TPU kernel
 ``smarc_navigation_tpu/ops/slam_da_kernels.py::da_lanes`` and keeps its
-signature (minus the unused ``valid``) and its outputs. With ``pose_rows``
-(the marginal fleet's (B, 8, D) Σ[0:6, :]) in place of Σ, Spp/Spl come
-from the rows and Sll from the band.
+signature (``valid`` is accepted and ignored, as there) and its outputs.
+With ``pose_rows`` (the marginal fleet's (B, 8, D) Σ[0:6, :]) in place of
+Σ, Spp/Spl come from the rows and Sll from the band.
 
 ``hungarian_lanes`` (K11) launches the same source's one-warp JV per
 mission on a (B, R, C) cost, replacing the TPU kernel of that name; its
-plain version solves each mission with ``assignment.hungarian``. The CUDA
-JV keeps each lane's rows in registers, so on the card both take at most
-``MAX_JV_ROWS`` cost rows (L + M for ``da_lanes``).
+plain version solves each mission with ``assignment.hungarian``. Both take
+any number of cost rows (L + M for ``da_lanes``): up to 1024 the CUDA JV
+keeps each lane's rows in registers; past that, or where the tables do not
+fit in shared memory, the kernels take their scratch form (the rows' duals
+and slacks, and the tables, in a per-mission device scratch buffer that the
+wrapper allocates when the launcher asks for it), which gives the same bits.
 
 The plain version of K1 is the batched ``ekf_slam.da_stage`` on the three Σ
 slabs, the per-mission ``assignment.hungarian`` and the kernel-branch
@@ -33,18 +36,27 @@ from torch.func import vmap
 from .. import _build, _tensors
 from .assignment import hungarian
 
-# the CUDA JV keeps each lane's rows in registers: at most 32 rows per lane
-MAX_JV_ROWS = 1024
-_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 19
-_JV_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+# True: K1 and K11 take their scratch form at every shape (the same bits;
+# only to hold the two forms against each other)
+FORCE_SCRATCH = False
+_ARGTYPES = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 20
+_JV_ARGTYPES = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+                + [ctypes.c_int, ctypes.c_void_p])
 
 
-def _lib(name="slam_da_launch", argtypes=_ARGTYPES):
+def _launch(name, argtypes, what, dev, B, head, tail=()):
+    """Call launcher ``name`` as head + (FORCE_SCRATCH, scratch) + tail.
+    Where it takes the scratch form it first launches nothing and returns
+    minus the floats per mission it needs: allocate them, call again."""
     fn = getattr(_build.load("slam_da"), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+        fn.restype = ctypes.c_longlong
+    rc = fn(*head, int(FORCE_SCRATCH), None, *tail)
+    if rc < 0:
+        scratch = torch.empty(B * -rc, dtype=torch.float32, device=dev)
+        rc = fn(*head, int(FORCE_SCRATCH), _tensors.ptr(scratch), *tail)
+    _build.check(rc, what)
 
 
 def _params_vec(q_diag, lam, outlier, mh_dist, new_lm_cov, r_sb, t_sb, dim, device):
@@ -79,6 +91,8 @@ def da_lanes(
     t_sb: torch.Tensor = None,  # (3,)  fls<-base translation (FLS only)
     A: torch.Tensor = None,     # (B,6,6) motion Jacobian (identity-gated):
                                 #   triggers the Σ-slab predict
+    valid: torch.Tensor = None,  # (B,) odom-valid gate: ignored, as in the
+                                #   reference (the gate is folded into r_full)
     r_full: torch.Tensor = None,  # (B,6,6) motion-noise block R̃ (validity-gated)
     band: torch.Tensor = None,  # (B, 24, L) landmark block-diag band:
                                 #   band[b, a*8+d, l] = Σ[b, 6+3l+a, 6+3l+a+d]
@@ -136,8 +150,6 @@ def da_lanes(
             pose_rows)
     if dev.type != "cuda":
         raise ValueError(f"da_lanes runs on CUDA or CPU tensors, not {dev}")
-    if L + M > MAX_JV_ROWS:
-        raise ValueError(f"da_lanes on CUDA takes L + M <= {MAX_JV_ROWS} cost rows, got {L + M}")
     par = _params_vec(q_diag, lam, outlier, mh_dist, new_lm_cov,
                       r_sb if sensor == "fls" else None,
                       t_sb if sensor == "fls" else None, dim, dev)
@@ -151,15 +163,14 @@ def da_lanes(
     add = torch.empty((B, M), dtype=torch.bool, device=dev)
     slot = torch.empty((B, M), dtype=i32, device=dev)
     P = _tensors.ptr
-    rc = _lib()(
-        _tensors.device_index(dev),
-        _tensors.stream(dev), B, L, M, D, int(pose_rows is not None),
-        int(sensor == "fls"), int(A is not None), int(band is not None),
-        P(pose6), P(n_active), P(active), P(lm_pos),
-        P(pose_rows if pose_rows is not None else Sigma), P(z), P(z_mask),
-        P(par), P(A), P(r_full), P(band),
-        P(ctr), P(H_sel), P(SinvH), P(nu_sel), P(cand), P(do), P(add), P(slot))
-    _build.check(rc, "da_lanes")
+    _launch("slam_da_launch", _ARGTYPES, "da_lanes", dev, B,
+            (_tensors.device_index(dev), _tensors.stream(dev), B, L, M, D,
+             int(pose_rows is not None), int(sensor == "fls"), int(A is not None),
+             int(band is not None)),
+            (P(pose6), P(n_active), P(active), P(lm_pos),
+             P(pose_rows if pose_rows is not None else Sigma), P(z), P(z_mask),
+             P(par), P(A), P(r_full), P(band),
+             P(ctr), P(H_sel), P(SinvH), P(nu_sel), P(cand), P(do), P(add), P(slot)))
     da_lanes.launches += 1
     return ctr, H_sel, SinvH, nu_sel, cand, do, add, slot
 
@@ -250,13 +261,10 @@ def hungarian_lanes(cost: torch.Tensor) -> torch.Tensor:
         return hungarian_lanes_reference(cost)
     if dev.type != "cuda":
         raise ValueError(f"hungarian_lanes runs on CUDA or CPU tensors, not {dev}")
-    if R > MAX_JV_ROWS:
-        raise ValueError(f"hungarian_lanes on CUDA takes R <= {MAX_JV_ROWS} rows, got {R}")
     out = torch.empty((B, C), dtype=torch.int32, device=dev)
-    rc = _lib("hungarian_lanes_launch", _JV_ARGTYPES)(
-        _tensors.device_index(dev),
-        _tensors.stream(dev), B, R, C, _tensors.ptr(cost), _tensors.ptr(out))
-    _build.check(rc, "hungarian_lanes")
+    _launch("hungarian_lanes_launch", _JV_ARGTYPES, "hungarian_lanes", dev, B,
+            (_tensors.device_index(dev), _tensors.stream(dev), B, R, C,
+             _tensors.ptr(cost), _tensors.ptr(out)))
     hungarian_lanes.launches += 1
     return out
 

@@ -96,3 +96,29 @@ def test_hungarian_lanes_kernel_matches_plain(cuda, B, R, C):
     torch.cuda.synchronize()
     assert tda.hungarian_lanes.launches == n0 + 1
     assert torch.equal(got.cpu(), tda.hungarian_lanes_reference(cost))
+
+
+# past the register JV (R > 1024: 1025, 2048) and past shared memory (a
+# 400 x 160 table is 256 KB): the scratch form against the plain version
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C", [(3, 1025, 8), (2, 2048, 16), (2, 400, 160)])
+def test_hungarian_lanes_kernel_past_the_register_jv(cuda, B, R, C):
+    tables = np.concatenate([_costs(s, R=R, C=C) for s in range((B + 3) // 4)])
+    cost = torch.from_numpy(tables[:B])
+    got = tda.hungarian_lanes(cost.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), tda.hungarian_lanes_reference(cost))
+
+
+# where both forms run, the scratch form is the register form bit for bit
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,C", [(16, 40, 8), (4, 65, 16), (4, 264, 8), (2, 80, 40),
+                                   (2, 1024, 8)])
+def test_hungarian_lanes_scratch_form_is_the_register_form(cuda, monkeypatch, B, R, C):
+    tables = np.concatenate([_costs(s, R=R, C=C) for s in range((B + 3) // 4)])
+    cost = torch.from_numpy(tables[:B]).to(cuda)
+    reg = tda.hungarian_lanes(cost)
+    monkeypatch.setattr(tda, "FORCE_SCRATCH", True)
+    scr = tda.hungarian_lanes(cost)
+    torch.cuda.synchronize()
+    assert torch.equal(reg, scr)

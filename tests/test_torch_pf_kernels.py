@@ -13,8 +13,9 @@ Tolerances and why: banks agree to 1e-5 absolute (the JAX kernels use a sin
 polynomial with 1.9e-7 error, the port libm); moment sums to 2e-5 relative
 (f32 sums in another order); resample ancestors fed the same counts are
 exact. On the card, kernel against plain version: uniforms and the gathers
-bitwise, floats to 1e-4 of the output's scale (logf/sincosf against
-torch.log/sin/cos, and sums in block order), angles compared modulo 2π.
+bitwise, floats to 1e-4 of the output's scale (the special-function unit's
+log and sin/cos, ~2^-21 absolute, against torch.log/sin/cos, and sums in
+block order), angles compared modulo 2π.
 """
 
 import math
@@ -130,6 +131,58 @@ def test_normals_statistics_and_keying():
     part = K.normals3(torch.tensor(7), idx[100:])[0]
     for got, want, tol in ((nx, x64, bound), (part, x64[100:], bound[100:])):
         assert bool(((got.double() - want).abs() <= tol).all())
+
+
+def _np_unmix32(x):
+    """The inverse of ``_np_mix32`` (on a copy of x)."""
+    x = np.array(x, np.uint32)
+    with np.errstate(over="ignore"):
+        x ^= x >> np.uint32(16)
+        x *= np.uint32(pow(0x846CA68B, -1, 1 << 32))
+        x ^= (x >> np.uint32(15)) ^ (x >> np.uint32(30))
+        x *= np.uint32(pow(0x7FEB352D, -1, 1 << 32))
+        x ^= x >> np.uint32(16)
+    return x
+
+
+def _jitter_near_one(device):
+    """K8 (one particle a call) at the global indices whose x-radius draw
+    (0) or yaw-radius draw (2) is one of the 32 uniforms nearest 1, found by
+    inverting the hash: -> (the uniforms in float64, the x and yaw noise of
+    the kernel path, and of the plain version), each (2, 32); all the
+    moment sums are checked finite on the way."""
+    seed = 21
+    bits = (np.uint32(1 << 24) - np.arange(1, 33, dtype=np.uint32)) << np.uint32(8)
+    sd = torch.ones(3, device=device)
+    seed_t = torch.tensor(seed, dtype=torch.int32, device=device)
+    bank = torch.zeros((6, 1), device=device)
+    u, got, plain = [], [], []
+    for draw, row in ((0, 0), (2, 5)):
+        with np.errstate(over="ignore"):
+            key = _np_mix32(np.uint32(seed) + np.uint32(0x9E3779B9) * np.uint32(draw + 1))
+            idx = _np_unmix32(_np_unmix32(bits) - key) ^ key
+        u.append(K.uniforms(torch.tensor(seed), torch.from_numpy(idx.astype(np.int64)),
+                            draw).double())
+        g, p = [], []
+        for i in idx.astype(np.int64):
+            off = int(i) - (1 << 32) if i >= 1 << 31 else int(i)   # the int32 seed_off
+            out, sums = K.jitter_moments_call(bank, sd, seed_t, seed_off=off)
+            assert bool(torch.isfinite(out).all() and torch.isfinite(sums).all()), (draw, off)
+            g.append(float(out[row, 0]))
+            p.append(float(K.jitter_moments_call_reference(bank, sd, seed_t, off)[0][row, 0]))
+        got.append(g)
+        plain.append(p)
+    return torch.stack(u), torch.tensor(got, dtype=torch.float64), torch.tensor(plain,
+                                                                              dtype=torch.float64)
+
+
+def test_jitter_draws_near_one_are_finite():
+    """The generator's largest uniforms (1 - k·2^-24, k <= 32) through the
+    jitter's Box-Muller: finite, and each noise within its float64 radius
+    sqrt(-2 ln u) (<= 2e-3 here) plus f32 rounding."""
+    u, got, _ = _jitter_near_one("cpu")
+    assert bool((u >= 1.0 - 32 * 2.0 ** -24).all())
+    assert bool((got.abs() <= torch.sqrt(-2.0 * torch.log(u)) + 1e-6).all())
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +373,18 @@ def test_uniforms_kernel_bitwise(cuda):
 
 
 @pytest.mark.cuda
+def test_jitter_kernel_draws_near_one(cuda):
+    """The kernel path's Box-Muller at the uniforms nearest 1: |ln u| is
+    there below the special-function unit's log error (2^-21.4 absolute), so
+    without the clamp the radius's argument may come out negative and the
+    particle NaN. Finite, and within 1e-3 of the plain version: an error of
+    2·2^-21.4 in r² moves r by at most sqrt(2^-20.4) < 1e-3."""
+    u, got, plain = _jitter_near_one(cuda)
+    assert bool((u >= 1.0 - 32 * 2.0 ** -24).all())
+    assert float((got - plain).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("flags", [(True, True), (False, True), (False, False)])
 def test_predict_kernels_match_plain(cuda, flags):
     par16, seeds = _mission_par16(motion_cov=(0.01, 0.02, 0, 0, 0, 1e-4))
@@ -359,3 +424,73 @@ def test_resample_kernels_match_plain(cuda, kind):
     assert torch.equal(fused, two) and torch.equal(s1, s2)
     r8, rs8 = K.jitter_moments_call_reference(got, sd, seed)
     assert _bank_err(two, r8) < 1e-4 and _max_err(s2, rs8) < 1e-4
+
+
+def _count_weights(kind, n, seed):
+    """Weights whose systematic counts stress K7's merge partition: one
+    particle takes every slot (degenerate, or the last particle), mass only
+    at the two ends (long zero-count runs), or random."""
+    if kind in ("degenerate", "zero_runs"):
+        return _weights(kind, n, seed)
+    w = np.zeros(n)
+    if kind == "all_on_last":
+        w[-1] = 1.0
+    else:
+        w = np.random.default_rng(seed).random(n) ** 3
+    return (w / w.sum()).astype(np.float32)
+
+
+# n not a multiple of 4 (no 16-byte stores) nor of 1024 (a part group), one
+# a multiple of 4 only, one below a group
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1023, 4098, 40_004, 1_000_003])
+@pytest.mark.parametrize("kind", ["degenerate", "zero_runs", "all_on_last", "random"])
+def test_resample_kernel_any_n_and_counts(cuda, n, kind):
+    parts = _t(_bank(n % 97, n), cuda)
+    m_cum = R.systematic_counts(_t(_count_weights(kind, n, 9), cuda),
+                                torch.tensor(0.6, device=cuda))
+    n0 = K.expand_gather_call.launches
+    got = K.expand_gather_call(m_cum, parts)
+    torch.cuda.synchronize()
+    assert K.expand_gather_call.launches == n0 + 1
+    assert torch.equal(got, K.expand_gather_call_reference(m_cum, parts))
+    sd = torch.tensor([0.5, 0.5, 0.02], device=cuda)
+    seed = torch.tensor(3, dtype=torch.int32, device=cuda)
+    fused, s1 = K.expand_gather_call(m_cum, parts, sd, seed)
+    rf, rs = K.expand_gather_call_reference(m_cum, parts, sd, seed)
+    assert _bank_err(fused, rf) < 1e-4 and _max_err(s1, rs) < 1e-4
+    two, s2 = K.jitter_moments_call(got, sd, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, two) and torch.equal(s1, s2)
+    # an 8-row bank: the two extra rows are gathered too
+    p8 = torch.cat([parts, parts[:2] * 3.0])
+    assert torch.equal(K.expand_gather_call(m_cum, p8), K.expand_gather_call_reference(m_cum, p8))
+
+
+# every nticks of a K-row call, at group counts that leave the persistent
+# grid's blocks uneven (one group; a few; many, not a multiple of the grid;
+# a part group at the end), on n with and without 16-byte rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 5 * 1024 + 3, 977 * 1024 + 4, (1 << 20) + 1])
+def test_predict_kernels_every_nticks(cuda, n):
+    par16, seeds = _mission_par16(motion_cov=(0.01, 0.02, 0, 0, 0, 1e-4), K_=6)
+    parts = _t(_bank(n % 89, n), cuda)
+    p16, sd = par16.to(cuda), seeds.to(cuda)
+    for flags in ((False, True), (True, True)):
+        for nt in range(0, 7):
+            out, sums = K.predict_call_multi(parts, p16, sd, *flags, nticks=nt)
+            torch.cuda.synchronize()
+            ro, rs = K.predict_call_multi_reference(parts, p16, sd, *flags, nticks=nt)
+            assert _bank_err(out, ro) < 1e-4 and _max_err(sums, rs) < 1e-4, (flags, nt)
+            assert (sums[nt:] == 0).all()
+            if nt == 0:
+                assert torch.equal(out, parts)
+        o1, s1 = K.predict_call(parts, p16[0], sd[0], *flags)
+        o2, s2 = K.predict_call_multi(parts, p16[:1], sd[:1], *flags)
+        assert torch.equal(o1, o2) and torch.equal(s1, s2[0])
+        # a K-tick call is its ticks one by one through K6, bit for bit
+        step, ssum = parts, []
+        for t in range(6):
+            step, s = K.predict_call(step, p16[t], sd[t], *flags)
+            ssum.append(s)
+        assert torch.equal(out, step) and torch.equal(sums, torch.stack(ssum))

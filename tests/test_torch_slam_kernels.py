@@ -360,3 +360,77 @@ def test_sequential_update_kernel_matches_plain(cuda):
     want = tsk.sequential_update_reference(*args)
     _close(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=0, atol_scale=1e-4)
     _close(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=0, atol_scale=1e-5)
+
+
+def _as_pose_rows(args, kw):
+    """The same stage in the marginal fleet's form: Σ's six pose rows
+    (padded to 8) in place of Σ, Sll from the band."""
+    Sig = args[4]
+    rows = np.zeros((Sig.shape[0], 8, Sig.shape[2]), np.float32)
+    rows[:, 0:6] = Sig[:, 0:6]
+    return args[:4] + [None] + args[5:], dict(kw, pose_rows=rows)
+
+
+# Past the register JV (L + M > 1024 cost rows: 1025, 2048) and past the
+# block's shared memory (L = 1200 at M = 8, beyond where the kernel before
+# the register JV ran out of it; L = 900 at M = 64, whose tables alone do
+# not fit although R <= 1024): the scratch form, in both Σ forms, MBES and
+# FLS, with exact ties
+DA_SCRATCH_CASES = [
+    pytest.param("mbes", 1017, 8, "full", id="mbes-R1025-full"),
+    pytest.param("fls", 1017, 8, "rows", id="fls-R1025-rows"),
+    pytest.param("mbes", 2040, 8, "rows", id="mbes-R2048-rows"),
+    pytest.param("fls", 2040, 8, "full", id="fls-R2048-full"),
+    pytest.param("mbes", 1200, 8, "full", id="mbes-L1200-full"),
+    pytest.param("fls", 1200, 8, "rows", id="fls-L1200-rows"),
+    pytest.param("mbes", 900, 64, "rows", id="mbes-L900-M64-rows"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensor,L_,M_,form", DA_SCRATCH_CASES)
+def test_da_lanes_kernel_past_the_register_jv(cuda, sensor, L_, M_, form):
+    params = _params(fls_mount=sensor == "fls")
+    x = _fleet_inputs(13, 2, sensor, params, n_act=(40, 300), L=L_, M=M_, dup=True)
+    args, kw = _da_args(x, sensor, params, True, True)
+    if form == "rows":
+        args, kw = _as_pose_rows(args, kw)
+    targs = [_to_torch(a, cuda) for a in args]
+    tkw = {k: _to_torch(v, cuda) for k, v in kw.items()}
+    n0 = tda.da_lanes.launches
+    got = tda.da_lanes(*targs, **tkw)
+    torch.cuda.synchronize()
+    assert tda.da_lanes.launches == n0 + 1
+    want = tda.da_lanes_reference(*targs, **tkw)
+    _assert_da_equal([g.cpu().numpy() for g in got], [w.cpu().numpy() for w in want],
+                     x["z_mask"], float(np.abs(x["z"]).max()))
+
+
+def _bitwise(a, b):
+    if a.dtype.is_floating_point:
+        return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+    return torch.equal(a, b)
+
+
+# where both forms can run (R <= 1024 and the tables fit in shared memory),
+# the scratch form is the register form bit for bit: every output, ties and
+# all, with the column duals in registers (C <= 32) and in memory (C = 40)
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensor,L_,M_,B_,form", [
+    ("mbes", 16, 4, 5, "full"), ("mbes", 57, 16, 3, "full"), ("fls", 56, 8, 3, "rows"),
+    ("mbes", 248, 8, 3, "rows"), ("fls", 256, 16, 2, "full"), ("mbes", 40, 40, 2, "full"),
+    ("mbes", 1000, 8, 2, "rows")])
+def test_da_lanes_scratch_form_is_the_register_form(cuda, monkeypatch, sensor, L_, M_, B_, form):
+    params = _params(fls_mount=sensor == "fls")
+    x = _fleet_inputs(17, B_, sensor, params, L=L_, M=M_, dup=True)
+    args, kw = _da_args(x, sensor, params, True, True)
+    if form == "rows":
+        args, kw = _as_pose_rows(args, kw)
+    targs = [_to_torch(a, cuda) for a in args]
+    tkw = {k: _to_torch(v, cuda) for k, v in kw.items()}
+    reg = tda.da_lanes(*targs, **tkw)
+    monkeypatch.setattr(tda, "FORCE_SCRATCH", True)
+    scr = tda.da_lanes(*targs, **tkw)
+    torch.cuda.synchronize()
+    for name, r, s in zip(DA_NAMES, reg, scr):
+        assert _bitwise(r, s), name
