@@ -2,8 +2,9 @@
 """Drive the PyTorch + CUDA port's main paths once on one GPU: the EKF-SLAM
 fleet replay at the headline shape (L=64) and at the reference-tuned L=256
 shape in both covariance semantics, the 2^20-particle PF replay, the
-combined PF + SLAM mission, the EKF-localization fleet and the 15-state
-dual-EKF fleet.
+combined PF + SLAM mission, the EKF-localization fleet, the 15-state
+dual-EKF fleet and the closed-loop raycast fleet at B=1024; dead reckoning
+and the SLAM + PF mission fleet against their CPU runs.
 
     python3 chip_smoke.py
 
@@ -102,9 +103,39 @@ Phases (any failure exits nonzero; nothing is caught):
      50), 120, 64)`` (T=6001) through ``run_fleet`` (K10 once per tick) and
      ``run_dual_fleet`` with ``global_config(50)`` (K10 twice per tick);
      then K10's mean device µs per launch over each and its share, as in 14.
-Phases 5, 5b, 5c, 14 and 15 run each replay's tick loop as a cached CUDA
-graph (``utils/graphs.py``), its default on the card. Before each of those
-seven replays is timed, its eager loop (``graph=False``) runs on the same
+ 16. K1 and K2 (phase 1 + K12) at the raycast fleet's shape (B=1024 missions,
+     L=32 slots, M=8, D=102), on its state after 50 ticks: K1 in its MBES
+     form with the band and no predict (the raycast tick predicts Σ in
+     PyTorch), K2 streamed bitwise its one-kernel schedule, each against
+     its plain version as in phase 3, K12 beside ``torch.baddbmm``; device
+     times and bounds;
+ 17. the raycast fleet ``raycast_fleet_inputs(1024, 301)`` (``bench.py``'s
+     raycast cell: 64 beams, 16 rocks per mission, the seed-1 mission's
+     ground truth) through ``run_raycast_fleet``'s kernel path, graphed
+     against eager (the second timeline: another rock field), timed as the
+     median of five graphed replays (every reading printed); K1, K2 (phase
+     1) and K12 once per tick; their shares and the busy share; its first 8
+     missions against the same missions replayed at B=8 (n_active exact,
+     poses within POSE_TOL);
+ 18. card against CPU at small sizes: the raycast kernel path (B=8, T=40)
+     on the card against the CPU and against the card's dense path
+     (n_active exact, poses within POSE_TOL); ``run_sam_dr_vectorized`` on
+     ``sam_dr_fleet_timelines(120, 256)`` (T=6001) against the CPU within
+     DR_TOL, timed per fleet tick (and as the slope between the 15 s and
+     120 s replays, as ``bench.py`` times it); the SLAM + PF fleet
+     ``parallel.fleet.run_fleet`` (8 missions, 40 ticks, N=1024, both PF
+     schemes) on the card against the CPU with the same seeds:
+     associations, n_active and GPS updates exact, poses within POSE_TOL,
+     the PF mean within FLEET_PF_TOL;
+ 19. the SLAM + PF fleet ``parallel.fleet.run_fleet`` at the headline's
+     width (B=128, L=64, M=8, the first 101 ticks of its timeline) with
+     1024 particles a mission and the residual resampler, graphed against
+     eager (the second timeline: the missions rotated), timed as the median
+     of five graphed replays; K1, K2 (phase 1) and K12 once per tick; their
+     shares, the busy share and the replay's 12 heaviest kernels.
+Phases 5, 5b, 5c, 14, 15, 17 and 19 run each replay's tick loop as a cached
+CUDA graph (``utils/graphs.py``), its default on the card. Before each of
+those nine replays is timed, its eager loop (``graph=False``) runs on the same
 inputs; the first graphed call (eager warm-up, capture and instantiate),
 three replays and a replay of the cached graph on a second timeline of the
 same shape (the missions permuted, or another seed's mission and map) must
@@ -118,16 +149,18 @@ CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); K2's and
 K3's are their streamed path's, phase 1 + K12, with the one-kernel
 schedule's beside them, K7's all the device work of a call (its kernel
 and the wrapper's zero fill of its group counters; the kernel alone in
-``kernel_ms``), and K12's line holds its L=64 and L=256 numbers;
+``kernel_ms``), and K12's line holds its L=64, L=256 and B=1024 numbers;
 the back-to-back wall time per wrapper call is printed beside it, and
 ``plain_ms`` is the plain version's back-to-back time on the card; K1's
 entry also holds its FLS form, one mission, K11 on its tables, the L=256
-forms and its launches on each main path (the combined mission's too), K4's
-its time at M=16;
+forms, the raycast fleet's B=1024 and its launches on each main path (the
+combined mission's, the raycast fleet's and the SLAM + PF fleet's too),
+K2's and K12's their B=1024 times and launches by path, K4's its time at
+M=16;
 ``library_ms`` (K7's ``torch.repeat_interleave``, K12's ``torch.baddbmm``) is the device time of all
 the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
-5c, 9, 9b, 10, 14 and 15) and read just after it (phase 5's after phase 6). K8 has
+5c, 9, 9b, 10, 14, 15, 17 and 19) and read just after it (phase 5's after phase 6). K8 has
 no caller on the single-device path (its TPU callers are the
 particle-sharded update and the TPU's exact-fallback branch) and K11 none
 on any path (the reference calls it from tests only; its JV core runs
@@ -144,6 +177,8 @@ device JSON.
 
 import dataclasses
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -192,6 +227,12 @@ def wall_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def names(key: str, name: str) -> bool:
+    """Whether a profiler record's key names the function ``name`` (a whole
+    identifier: ``da_kernel`` is not ``searchsorted_cuda_kernel``)."""
+    return re.search(rf"(?<![A-Za-z0-9_]){name}(?![A-Za-z0-9_])", key) is not None
+
+
 def path_ms(fn, n, kernels):
     """{name fragment: mean device ms per launch} of the CUDA kernels of
     ``kernels``, each launched once per call of fn(), over n calls (after
@@ -211,7 +252,7 @@ def path_ms(fn, n, kernels):
         seen = {k: [0.0, 0] for k in kernels}
         for e in prof.key_averages():
             for k in kernels:
-                if k in e.key and e.self_device_time_total > 0:
+                if names(e.key, k) and e.self_device_time_total > 0:
                     seen[k][0] += e.self_device_time_total
                     seen[k][1] += e.count
         if all(1 <= count for _, count in seen.values()):
@@ -227,20 +268,25 @@ def call_device_ms(fn, n):
     card (every kernel and copy it launches), over n calls (after one
     warm-up), from one torch.profiler trace: a library call's device time,
     on the clock of ``device_ms``. Each kernel's mean per launch times its
-    launches per call, so that a record the trace drops biases nothing."""
+    launches per call, so that a record the trace drops biases nothing; a
+    trace that holds no device record at all is taken again, up to three
+    times, as in ``path_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total / e.count * max(1, round(e.count / n))
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.count > 0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total / e.count * max(1, round(e.count / n))
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.count > 0)
+        if total_us > 0:
+            break
     if total_us <= 0:
         raise AssertionError("profiler saw no device time")
     return total_us / 1e3
@@ -665,6 +711,22 @@ def timed(fn):
     return r, start.elapsed_time(end), time.perf_counter() - t0
 
 
+def timed_replays(fn, counters, T, what, n=5):
+    """A main path's timed run: every launch count set to 0, n calls of fn()
+    (each a graph replay) between CUDA events, the counts read after the
+    first, which must have launched K1, K2 (phase 1) and K12 T times each.
+    Returns (first result, counts, median ms, every ms, the first's host s)."""
+    for f in counters:
+        f.launches = 0
+    first, ms0, wall = timed(fn)
+    counts = {f.__name__: f.launches for f in counters}
+    want = dict(da_lanes=T, sequential_update_fleet=T, symmetric_downdate=T)
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    reps = [ms0] + [timed(fn)[1] for _ in range(n - 1)]
+    return first, counts, statistics.median(reps), reps, wall
+
+
 def bitwise(a, b) -> bool:
     """Bitwise equality of two tensors (NaNs included)."""
     import torch
@@ -740,12 +802,13 @@ def graph_vs_eager(what, run, run2, T):
     return res
 
 
-def device_share(fn, kernels, replay_ms, what):
+def device_share(fn, kernels, replay_ms, what, top=0):
     """One more call of fn() (a replay) under torch.profiler: each kernel of
     ``kernels`` ({name fragment: launches}) with its mean device µs per
     launch and its share of the timed replay (µs × launches / replay time),
     then the device time of every kernel of the call together, as a share
-    of the replay (the card's busy share)."""
+    of the replay (the card's busy share), and the ``top`` kernels of the
+    call by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -759,7 +822,7 @@ def device_share(fn, kernels, replay_ms, what):
         if e.self_device_time_total > 0:
             busy += e.self_device_time_total
             for k in kernels:
-                if k in e.key:
+                if names(e.key, k):
                     per[k][0] += e.self_device_time_total
                     per[k][1] += e.count
     parts, share = [], 0.0
@@ -773,6 +836,11 @@ def device_share(fn, kernels, replay_ms, what):
     print(f"{what}: " + "; ".join(parts) + f"; x launches = {100 * share:.1f} % of the replay's "
           f"{replay_ms:.1f} ms; all kernels {busy / 1e3:.1f} ms device = "
           f"{100 * busy / (replay_ms * 1e3):.1f} % busy", flush=True)
+    evs = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    for e in evs[:top]:
+        print(f"  {e.self_device_time_total / 1e3:.2f} ms device in {e.count} launches: "
+              f"{e.key[:110]}", flush=True)
     return share
 
 
@@ -1607,6 +1675,277 @@ def filter_fleets(dev):
     return k9, k10, filter_replays(dev, cfg, params, tl64, tl15)
 
 
+RC_B, RC_T = 1024, 301  # the raycast fleet of bench.py's raycast cell
+DR_B = 256              # the SAM dead-reckoning fleet of bench.py's sam-dr cell
+# SAM DR, card vs CPU: f32 cumsums of 6001 steps of ~2 cm at positions up to
+# ~100 m, each add rounding to at most 7.6e-6 m, summed in another order
+DR_TOL = 1e-2
+# SLAM + PF fleet, card vs CPU, same seeds: the PF mean (the same uniforms bit
+# for bit, normals a few ulps apart through the card's log, sin and cos; the
+# weights an ulp apart can move a resample boundary by one particle of 1024)
+FLEET_PF_TOL = 1e-2
+
+
+def raycast_kernels_phase(dev):
+    """Phase 16: K1 and K2 (phase 1 + K12) at the raycast fleet's shape
+    (B=1024, L=32, M=8, D=102) on its state after T_WARM ticks, against their
+    plain versions; K2 streamed == one-kernel bitwise; device times and
+    bounds."""
+    import torch
+
+    from smarc_navigation_tpu_torch.io.workloads import raycast_fleet_inputs
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.ops import raycast
+    from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+    from smarc_navigation_tpu_torch.parallel import fleet as FL
+
+    t0 = time.perf_counter()
+    cfg, spec, gt, lms, lmm = raycast_fleet_inputs(RC_B, T_WARM + 1)
+    gt, lms, lmm = (torch.as_tensor(x, device=dev) for x in (gt, lms, lmm))
+    params = S.make_params(cfg, device=dev)
+    B, L, M = RC_B, cfg.max_landmarks, cfg.max_obs
+    D = 6 + 3 * L
+    st, _ = FL.run_raycast_fleet(gt[:, :T_WARM], lms, lmm, cfg, params, spec, graph=False)
+    pose = gt[:, T_WARM].contiguous()
+    pts, zm = raycast.ping_detections(pose, lms, lmm, spec, M)
+    st_p, _ = S._fleet_predict(st, pose, torch.ones(B, dtype=torch.bool, device=dev), params,
+                               predict_sigma=True)
+    band = S.initial_band(st_p.Sigma, L).contiguous()
+    c = S.pass_consts(params, cfg, S.MBES)
+    da_args = (st_p.mu[:, 0:6].contiguous(), st_p.n_active, st_p.active,
+               st_p.mu[:, 6:].reshape(B, L, 3).contiguous(), st_p.Sigma, pts.contiguous(),
+               zm.contiguous(), c.q_diag, c.lam, c.outlier, c.mh_dist, c.new_cov)
+    k1, got = k1_case("raycast fleet MBES (band, no predict)", da_args, dict(sensor="mbes", band=band),
+                      zm, 3)
+    ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = got
+    if not int(do.sum()) > 0:
+        raise AssertionError("raycast kernels: no update to apply at the phase's tick")
+    k2_args = (st_p.Sigma, st_p.mu, H_sel, SinvH, nu_sel, (6 + 3 * slot).contiguous(), do, add,
+               c.new_cov, cand, None, band)
+    strm = K2.sequential_update_fleet(*k2_args)
+    one = K2.sequential_update_fleet(*k2_args, streamed=False)
+    torch.cuda.synchronize()
+    for g, o, name in zip(strm, one, ("Sigma", "mu", "band")):
+        if not bitwise(g, o):
+            raise AssertionError(f"K2 at B={B}: streamed {name} differs from the one-kernel schedule's")
+    if not torch.equal(strm[0], strm[0].transpose(1, 2)):
+        raise AssertionError(f"K2 at B={B}: Sigma not exactly symmetric")
+    want = K2.sequential_update_fleet_reference(*k2_args)
+    e2 = max(check(max_err(strm[0], want[0]), f"K2 B={B} Sigma"),
+             check(max_err(strm[1], want[1]), f"K2 B={B} mu"),
+             check(max_err(band_entries(strm[2]), band_entries(want[2])), f"K2 B={B} band"))
+
+    def k2():
+        return K2.sequential_update_fleet(*k2_args)
+
+    t = path_ms(k2, 30, ("phase1_kernel", "downdate_kernel"))
+    _, _, P1, U, V, act = K2.phase1(*k2_args)
+    k12 = k12_phase(st_p.Sigma, U, V, P1, act, f"raycast B={B} L={L}")
+    res = dict(K1=k1, K12=k12, K2=dict(
+        err=e2, ms=t["phase1_kernel"] + t["downdate_kernel"], phase1_ms=t["phase1_kernel"],
+        downdate_ms=t["downdate_kernel"], wall_ms=wall_ms(k2, 50),
+        one_kernel_ms=device_ms(lambda: K2.sequential_update_fleet(*k2_args, streamed=False), 30,
+                                "update_kernel"),
+        plain_ms=wall_ms(lambda: K2.sequential_update_fleet_reference(*k2_args), 5),
+        bound=bound(nbytes(*k2_args, *strm), k2_flops(B, D, M, 3, False)), shape=(B, L, M)))
+    v = res["K2"]
+    print(f"K2 at the raycast fleet's shape B={B} D={D} M={M} ({int(do.sum())} updates, "
+          f"{int(add.sum())} adds): max err vs plain {e2:.3e}; phase 1 {v['phase1_ms']:.4f} + K12 "
+          f"{v['downdate_ms']:.4f} = {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms per call back "
+          f"to back), one-kernel schedule {v['one_kernel_ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, "
+          f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}); streamed == one-kernel bitwise "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return res
+
+
+def raycast_replay(dev, counters):
+    """Phase 17: the raycast fleet ``raycast_fleet_inputs(1024, 301)``
+    through ``run_raycast_fleet`` (the main path of this cell), graphed
+    against eager (the second timeline: another rock field), then timed:
+    K1, K2 (phase 1) and K12 once per tick; the kernels' shares."""
+    import torch
+
+    from smarc_navigation_tpu_torch.io.workloads import raycast_fleet_inputs
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.parallel import fleet as FL
+
+    cfg, spec, gt, lms, lmm = raycast_fleet_inputs(RC_B, RC_T)
+    gt, lms, lmm = (torch.as_tensor(x, device=dev) for x in (gt, lms, lmm))
+    lms2 = torch.flip(lms, (0,)) + torch.tensor([1.5, -2.0, 0.0], device=dev)
+    params = S.make_params(cfg, device=dev)
+    B, T = RC_B, RC_T
+
+    def run(graph, rocks=lms):
+        return FL.run_raycast_fleet(gt, rocks, lmm, cfg, params, spec, use_da_kernel=True,
+                                    graph=graph)
+
+    g = graph_vs_eager(f"raycast fleet B={B} T={T}", run, lambda gr: run(gr, lms2), T)
+    (final, (mu, na)), n, ms, reps, wall = timed_replays(lambda: run(True), counters, T,
+                                                         "raycast fleet")
+    for name, x in (("mu", mu), ("Sigma", final.Sigma)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"raycast fleet: non-finite {name}")
+    n_act = na[:, -1].cpu()
+    if not int((n_act > 0).sum()) >= B // 2:
+        raise AssertionError(f"raycast fleet: too few missions mapped a rock: {n_act}")
+    # the fleet's width changes nothing of a mission: its first 8 missions
+    # replayed alone (eager; phase 18 holds that width against the CPU)
+    _f8, (mu8, na8) = FL.run_raycast_fleet(gt[:8], lms[:8], lmm[:8], cfg, params, spec,
+                                           use_da_kernel=True, graph=False)
+    err = float((mu[:8] - mu8).abs().max())
+    if not (torch.equal(na[:8], na8) and err <= POSE_TOL):
+        raise AssertionError(f"raycast fleet: missions 0-7 differ from their B=8 replay "
+                             f"(pose {err:.3e}, n_active equal {torch.equal(na[:8], na8)})")
+    print(f"raycast fleet B={B} T={T} L={cfg.max_landmarks} M={cfg.max_obs} {spec.num_beams} beams "
+          f"(graphed): {ms:.1f} ms on the card, the median of {len(reps)} replays ("
+          + ", ".join(f"{r:.1f}" for r in reps) + f"; the first {wall:.2f} s host), "
+          f"{ms * 1e3 / T:.1f} us/fleet tick, "
+          f"{B * T / (ms / 1e3):.0f} steps/s; n_active min {int(n_act.min())} mean "
+          f"{float(n_act.float().mean()):.2f} max {int(n_act.max())}; missions 0-7 against their "
+          f"B=8 replay: n_active equal, max pose err {err:.3e}; launches {n}", flush=True)
+    g["share"] = device_share(lambda: run(True), {"da_kernel": T, "phase1_kernel": T,
+                                                  "downdate_kernel": T}, ms,
+                              "raycast fleet (graphed)")
+    g["ms"], g["replays_ms"] = ms, reps
+    return n, g
+
+
+def slice12_checks(dev):
+    """Phase 18: card against CPU at small sizes: the raycast kernel path
+    (B=8, T=40) and, on the card, its dense path against its kernel path;
+    ``run_sam_dr_vectorized`` at B=256 (the 120 s mission), timed; the
+    SLAM + PF fleet (8 missions, 40 ticks, both PF schemes) with the same
+    seeds."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.io.workloads import (
+        raycast_fleet_inputs, sam_dr_fleet_timelines, slam_fleet_timelines)
+    from smarc_navigation_tpu_torch.models import dead_reckoning as DR
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.parallel import fleet as FL
+
+    t0 = time.perf_counter()
+    cfg, spec, gt, lms, lmm = raycast_fleet_inputs(8, 40)
+    runs = {}
+    for name, d, kernel in (("card kernel", dev, None), ("card dense", dev, False),
+                            ("CPU kernel", "cpu", True)):
+        runs[name] = FL.run_raycast_fleet(
+            *(torch.as_tensor(x, device=d) for x in (gt, lms, lmm)), cfg,
+            S.make_params(cfg, device=d), spec, use_da_kernel=kernel)
+    mu_k, na_k = (x.cpu() for x in runs["card kernel"][1])
+    for other in ("card dense", "CPU kernel"):
+        mu_o, na_o = (x.cpu() for x in runs[other][1])
+        if not torch.equal(na_k, na_o):
+            raise AssertionError(f"raycast B=8: n_active differs between the card kernel path and {other}")
+        err = float((mu_k - mu_o).abs().max())
+        if not err <= POSE_TOL:
+            raise AssertionError(f"raycast B=8: pose differs from {other} by {err:.3e}")
+        print(f"raycast fleet B=8 T=40: card kernel path vs {other}: n_active equal "
+              f"(final {na_k[:, -1].tolist()}), max pose err {err:.3e}", flush=True)
+
+    # the SAM DR fleet: closed form, card vs CPU, timed on the card
+    res = {}
+    tls = {k: sam_dr_fleet_timelines(dur, DR_B) for k, dur in (("s", 15.0), ("b", 120.0))}
+    out_c = DR.run_sam_dr_vectorized(tls["b"].to("cpu"))
+    tl_b = tls["b"].to(dev)
+    out_g = DR.run_sam_dr_vectorized(tl_b)
+    err = float((out_g.cpu() - out_c).abs().max())
+    if not err <= DR_TOL:
+        raise AssertionError(f"SAM DR B={DR_B}: card vs CPU max err {err:.3e} > {DR_TOL}")
+    on_card = {k: tl.to(dev) for k, tl in tls.items()}
+    ms = {k: statistics.median([timed(lambda: DR.run_sam_dr_vectorized(tl))[1] for _ in range(5)])
+          for k, tl in on_card.items()}
+    Ts = {k: tl.ticks.shape[1] for k, tl in tls.items()}
+    slope = (ms["b"] - ms["s"]) / (Ts["b"] - Ts["s"])
+    res["dr"] = dict(us_per_tick=ms["b"] * 1e3 / Ts["b"], slope_us=slope * 1e3, err=err,
+                     device_ms=call_device_ms(lambda: DR.run_sam_dr_vectorized(tl_b), 10))
+    print(f"SAM DR fleet B={DR_B} (closed form): card vs CPU max err {err:.3e} (T={Ts['b']}); "
+          f"{ms['b']:.3f} ms per {Ts['b']}-tick replay = {res['dr']['us_per_tick']:.3f} us/fleet "
+          f"tick ({DR_B / (res['dr']['us_per_tick'] / 1e6):.4g} ticks/s), slope over the "
+          f"{Ts['s']}- and {Ts['b']}-tick replays {res['dr']['slope_us']:.3f} us/fleet tick; device "
+          f"time of one replay {res['dr']['device_ms']:.3f} ms", flush=True)
+
+    # the SLAM + PF fleet, card vs CPU, the same seeds
+    scfg = dataclasses.replace(cfg, max_landmarks=16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ftl = slam_fleet_timelines(scfg, 3.9, 8)
+    pcfg = PFConfig(particle_count=1024)
+    for scheme in ("residual", "systematic"):
+        outs = {}
+        for d in (dev, "cpu"):
+            outs[str(d)] = FL.run_fleet(ftl.to(d), scfg, S.make_params(scfg, device=d), pcfg,
+                                        PF.make_params(pcfg, device=d), 1024, seed=3,
+                                        pf_scheme=scheme, graph=False)[1]
+        (og, oc) = (outs[str(dev)], outs["cpu"])
+        for key in ("matched_mbes", "n_active"):
+            if not torch.equal(og["slam"][key].cpu(), oc["slam"][key]):
+                raise AssertionError(f"SLAM+PF fleet ({scheme}): slam {key} differs card vs CPU")
+        if not torch.equal(og["pf"]["updated"].cpu(), oc["pf"]["updated"]):
+            raise AssertionError(f"SLAM+PF fleet ({scheme}): pf updated differs card vs CPU")
+        e_s = float((og["slam"]["mu"].cpu() - oc["slam"]["mu"]).abs().max())
+        e_p = float((og["pf"]["mean"].cpu() - oc["pf"]["mean"]).abs().max())
+        if not (e_s <= POSE_TOL and e_p <= FLEET_PF_TOL):
+            raise AssertionError(f"SLAM+PF fleet ({scheme}): card vs CPU slam mu {e_s:.3e}, "
+                                 f"pf mean {e_p:.3e}")
+        print(f"SLAM+PF fleet B=8 T={og['pf']['mean'].shape[0]} N=1024 ({scheme}): card vs CPU "
+              f"(seed 3): associations, n_active and updates equal, max slam pose err {e_s:.3e}, "
+              f"max pf mean err {e_p:.3e} ({int(og['pf']['updated'].sum())} GPS updates)",
+              flush=True)
+    print(f"slice-12 checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
+SPF_T, SPF_N = 101, 1024  # the SLAM + PF fleet: the headline's first 10 s, particles a mission
+
+
+def slam_pf_replay(dev, cfg, params, tl, counters):
+    """Phase 19: the SLAM + PF mission fleet ``fleet.run_fleet`` at the
+    headline's width (B=128, L=64, M=8) over its first 10 s (T=101), 1024
+    particles a mission, the default residual resampler: graphed against
+    eager (the second timeline: the missions rotated by one), then timed:
+    K1, K2 (phase 1) and K12 once per tick; the kernels' shares."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.parallel import fleet as FL
+
+    tl = tl.map(lambda x: x[:, :SPF_T])
+    tl2 = tl.map(lambda x: torch.roll(x, 1, 0))
+    B, T = tl.ticks.shape
+    pcfg = PFConfig(particle_count=SPF_N)
+    pparams = PF.make_params(pcfg, device=dev)
+
+    def run(graph, t=tl):
+        return FL.run_fleet(t, cfg, params, pcfg, pparams, SPF_N, seed=4, graph=graph)
+
+    what = f"SLAM+PF fleet B={B} T={T} N={SPF_N}"
+    g = graph_vs_eager(what, run, lambda gr: run(gr, tl2), T)
+    (final, out), n, ms, reps, wall = timed_replays(lambda: run(True), counters, T, what)
+    for name, x in (("slam mu", out["slam"]["mu"]), ("pf mean", out["pf"]["mean"]),
+                    ("particles", final.pf.particles), ("Sigma", final.slam.Sigma)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{what}: non-finite {name}")
+    n_act, n_upd = final.slam.n_active.cpu(), int(out["pf"]["updated"].sum())
+    if not (int((n_act > 0).sum()) >= B // 2 and n_upd > 0):
+        raise AssertionError(f"{what}: n_active {n_act.tolist()}, {n_upd} GPS updates")
+    gap = (out["pf"]["mean"][-1, :, 0:2] - out["slam"]["mu"][-1, :, 0:2]).norm(dim=1)
+    print(f"{what} (graphed): {ms:.1f} ms on the card, the median of {len(reps)} replays ("
+          + ", ".join(f"{r:.1f}" for r in reps) + f"; the first {wall:.2f} s host), "
+          f"{ms * 1e3 / T:.1f} us/fleet tick, {B * T / (ms / 1e3):.0f} mission ticks/s; "
+          f"{n_upd} GPS updates; n_active mean {float(n_act.float().mean()):.1f}; PF mean to "
+          f"SLAM pose at the last tick: median {float(gap.median()):.3f} m, max "
+          f"{float(gap.max()):.3f} m; launches {n}", flush=True)
+    g["share"] = device_share(lambda: run(True), {"da_kernel": T, "phase1_kernel": T,
+                                                  "downdate_kernel": T}, ms, f"{what} (graphed)",
+                              top=12)
+    g["ms"], g["replays_ms"] = ms, reps
+    return n, g
+
+
 def main():
     import torch
 
@@ -1855,6 +2194,13 @@ def main():
     # --- 11-15. the localization and 15-state fleets ----------------------------
     k9, k10, (fl_launch, g_filters) = filter_fleets(dev)
 
+    # --- 16-18. the raycast fleet, dead reckoning, the SLAM + PF fleet ---------
+    rck = raycast_kernels_phase(dev)
+    rc_launch, g_rc = raycast_replay(dev, counters)
+    s12 = slice12_checks(dev)
+    # --- 19. the SLAM + PF mission fleet at the headline's width -------------
+    spf_launch, g_spf = slam_pf_replay(dev, cfg, params, tl, counters)
+
     def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None, **extra):
         return dict(name=name, route="cuda", source=f"smarc_navigation_tpu_torch/csrc/{source}",
                     replaces=f"smarc_navigation_tpu/ops/{replaces}", launches=n,
@@ -1869,25 +2215,38 @@ def main():
 
     k1_l256 = {k: brief(k256[k]) for k in ("K1_pose_rows", "K1_pose_rows_fls", "K1_full",
                                            "K1_full_fls", "K1_pose_rows_M16")}
+    rk2, rk12 = rck["K2"], rck["K12"]
     kernels = [
         # K1 at the L=64 headline (MBES, with predict and band); beside it the
         # FLS form, one mission, K11 on the same tables (the JV's share), the
         # L=256 forms and the launches of each main path
         entry("da_lanes", "slam_da.cu", "slam_da_kernels.py:581", launches["da_lanes"],
-              max([k1_err, k1f_err, k1_b1["err"]] + [v["max_abs_err"] for v in k1_l256.values()]),
+              max([k1_err, k1f_err, k1_b1["err"], rck["K1"]["err"]]
+                  + [v["max_abs_err"] for v in k1_l256.values()]),
               k1_ms, k1_plain_ms, k1_bound, fls=brief(k1f), one_mission=brief(k1_b1),
               jv_alone=brief(k11_64), L256=k1_l256, past_register_jv=big["K1"],
+              B1024=brief(rck["K1"]),
               launches_by_path={"slam-fleet128-L64": launches["da_lanes"],
                                 "slam-fleet32-L256-full": l256["full"]["da_lanes"],
                                 "slam-fleet32-L256-marginal": l256["marginal"]["da_lanes"],
-                                "combined-1M": cb_launch["da_lanes"]}),
+                                "combined-1M": cb_launch["da_lanes"],
+                                "raycast-fleet1024": rc_launch["da_lanes"],
+                                "slam-pf-fleet128": spf_launch["da_lanes"]}),
         # K2 and K3: the streamed path's device time, phase 1 + K12
         entry("sequential_update_fleet", "slam_update.cu", "slam_kernels.py:791",
-              launches["sequential_update_fleet"], max(k2_err, k256["K2_774"]["err"]), k2_ms,
-              k2_plain_ms, k2_bound, phase1_ms=k2_t["phase1_kernel"],
+              launches["sequential_update_fleet"], max(k2_err, k256["K2_774"]["err"], rk2["err"]),
+              k2_ms, k2_plain_ms, k2_bound, phase1_ms=k2_t["phase1_kernel"],
               downdate_ms=k2_t["downdate_kernel"], one_kernel_ms=k2_one_ms,
               D774=dict(phase1_ms=k256["K2_774"]["phase1_ms"], downdate_ms=k12_256["ms"],
-                        one_kernel_ms=k256["K2_774"]["ms"], bound_ms=k256["K2_774"]["bound"][0])),
+                        one_kernel_ms=k256["K2_774"]["ms"], bound_ms=k256["K2_774"]["bound"][0]),
+              B1024=dict(ms=rk2["ms"], phase1_ms=rk2["phase1_ms"], downdate_ms=rk2["downdate_ms"],
+                         one_kernel_ms=rk2["one_kernel_ms"], plain_ms=rk2["plain_ms"],
+                         bound_ms=rk2["bound"][0], bound_by=rk2["bound"][1],
+                         max_abs_err=rk2["err"], shape=list(rk2["shape"])),
+              launches_by_path={"slam-fleet128-L64": launches["sequential_update_fleet"],
+                                "slam-fleet32-L256-full": l256["full"]["sequential_update_fleet"],
+                                "raycast-fleet1024": rc_launch["sequential_update_fleet"],
+                                "slam-pf-fleet128": spf_launch["sequential_update_fleet"]}),
         entry("sequential_update", "slam_update.cu", "slam_kernels.py:213",
               launches["sequential_update"], k3_err, k3_ms, k3_plain_ms, k3_bound,
               phase1_ms=k3_t["phase1_kernel"], downdate_ms=k3_t["downdate_kernel"],
@@ -1914,14 +2273,23 @@ def main():
               L64_tables=brief(k11_64), past_register_jv=big["K11"]),
         # K12 at the L=64 headline (launches: phases 5-6), and at L=256
         entry("symmetric_downdate", "slam_downdate.cu", "slam_kernels.py:807",
-              launches["symmetric_downdate"], max(k12_64["err"], k12_256["err"]), k12_64["ms"],
+              launches["symmetric_downdate"], max(k12_64["err"], k12_256["err"], rk12["err"]),
+              k12_64["ms"],
               k12_64["plain_ms"], k12_64["bound"], k12_64["library_ms"],
               one_row_ms=k12_64["one_row_ms"], copy_ms=k12_64["copy_ms"],
               L256=dict(launches=l256["full"]["symmetric_downdate"], max_abs_err=k12_256["err"],
                         ms=k12_256["ms"], plain_ms=k12_256["plain_ms"],
                         bound_ms=k12_256["bound"][0], bound_by=k12_256["bound"][1],
                         library_ms=k12_256["library_ms"], one_row_ms=k12_256["one_row_ms"],
-                        copy_ms=k12_256["copy_ms"])),
+                        copy_ms=k12_256["copy_ms"]),
+              B1024=dict(launches=rc_launch["symmetric_downdate"], max_abs_err=rk12["err"],
+                         ms=rk12["ms"], plain_ms=rk12["plain_ms"], bound_ms=rk12["bound"][0],
+                         bound_by=rk12["bound"][1], library_ms=rk12["library_ms"],
+                         one_row_ms=rk12["one_row_ms"], copy_ms=rk12["copy_ms"]),
+              launches_by_path={"slam-fleet128-L64": launches["symmetric_downdate"],
+                                "slam-fleet32-L256-full": l256["full"]["symmetric_downdate"],
+                                "raycast-fleet1024": rc_launch["symmetric_downdate"],
+                                "slam-pf-fleet128": spf_launch["symmetric_downdate"]}),
         # K9 at the loc-fleet64 replay's shape; K10 in the local wiring of
         # the ekf15-fleet64 replay (its dual replay launches it 2T times)
         entry("fleet_tick", "loc_tick.cu", "loc_kernels.py:326", fl_launch["loc64"],
@@ -1933,11 +2301,21 @@ def main():
     graphed = {"slam-fleet128-L64": g_head, "slam-fleet32-L256-full": g256["full"],
                "slam-fleet32-L256-marginal": g256["marginal"], "loc-fleet64": g_filters["loc64"],
                "loc-fleet512": g_filters["loc512"], "ekf15-fleet64": g_filters["ekf15"],
-               "ekf15-dual64": g_filters["ekf15_dual"]}
+               "ekf15-dual64": g_filters["ekf15_dual"], "raycast-fleet1024": g_rc,
+               "slam-pf-fleet128": g_spf}
     for name, g in graphed.items():
         print(f"graph summary {name}: us/tick first call {g['first_us']:.1f}, steady "
               f"{g['steady_us']:.1f}, eager {g['eager_us']:.1f}; path kernels "
               f"{100 * g['share']:.1f} % of the steady replay; graphed == eager bitwise", flush=True)
+    print(f"raycast-fleet1024: {RC_B * RC_T / (g_rc['ms'] / 1e3):.0f} steps/s graphed "
+          f"({g_rc['ms'] * 1e3 / RC_T:.1f} us/fleet tick); sam-dr-fleet256: "
+          f"{s12['dr']['us_per_tick']:.3f} us/fleet tick ({DR_B / (s12['dr']['us_per_tick'] / 1e6):.4g} "
+          f"ticks/s), slope {s12['dr']['slope_us']:.3f} us/fleet tick; slam-pf-fleet128: "
+          f"{g_spf['ms'] * 1e3 / SPF_T:.1f} us/fleet tick graphed (median of "
+          + ", ".join(f"{r * 1e3 / SPF_T:.1f}" for r in g_spf["replays_ms"]) + "); "
+          f"raycast-fleet1024 replays: "
+          + ", ".join(f"{r * 1e3 / RC_T:.1f}" for r in g_rc["replays_ms"]) + " us/fleet tick",
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

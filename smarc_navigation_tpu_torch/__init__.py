@@ -16,17 +16,24 @@ and the 15-state dual-EKF fleet (``models.ekf_15state``, K10). All twelve
 kernels are hand-written CUDA C++ for Hopper (``csrc/``), built at first use
 by ``_build.py``. On the card the SLAM, localization and 15-state fleet
 replays run their tick loops as cached CUDA graphs (``utils/graphs.py``).
+Slice 12 adds dead reckoning (``models.dead_reckoning``, ``ops.oned_kf``),
+sonar perception (``ops.sonar``, ``ops.raycast``), the closed-loop raycast
+fleet (``parallel.fleet.run_raycast_fleet``: K1, K2's phase 1 and K12,
+graphed) and the SLAM + PF mission fleet (``parallel.fleet.run_fleet``:
+K1 and K2 per tick, every particle bank stepped at once on its device,
+graphed).
 
 Layout (same paths as the reference):
   utils/     geometry, linalg, graphs (the cached CUDA graphs of the tick loops)
-  io/        numpy mission simulator, the SLAM, combined, localization and
-             15-state fleet workloads
-  ops/       timeline, assignment, bezier, resampling, slam_da_kernels (K1,
-             K11), slam_kernels (K2-K4, K12), pf_kernels (K5-K8),
-             loc_kernels (K9), ekf15_kernels (K10)
-  parallel/  fleet.batch_timelines, fleet.run_combined
+  io/        numpy mission simulator, the SLAM, combined, localization,
+             15-state, dead-reckoning and raycast fleet workloads
+  ops/       timeline, assignment, bezier, oned_kf, resampling, sonar,
+             raycast, slam_da_kernels (K1, K11), slam_kernels (K2-K4, K12),
+             pf_kernels (K5-K8), loc_kernels (K9), ekf15_kernels (K10)
+  parallel/  fleet: batch_timelines, run_combined, the SLAM + PF fleet,
+             run_raycast_fleet
   models/    ekf_slam, particle_filter, ekf_localization, ekf_15state,
-             motion_model
+             motion_model, dead_reckoning
 """
 
 import torch as _torch

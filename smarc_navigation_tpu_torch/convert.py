@@ -11,13 +11,15 @@ import torch
 from .models.ekf_15state import Ekf15State
 from .models.ekf_localization import EKFLocParams, EKFLocState
 from .models.ekf_slam import MarginalFleetState, SlamParams, SlamState
-from .models.particle_filter import PFParams, PFState
+from .models.particle_filter import FleetPFState, PFParams, PFState, fleet_keys
 from .ops.timeline import timeline_from_numpy
+from .parallel.fleet import FleetState
 
 __all__ = ["slam_params_from_numpy", "slam_state_from_numpy",
            "marginal_state_from_numpy", "timeline_from_numpy",
            "pf_params_from_numpy", "pf_state_from_numpy",
-           "loc_params_from_numpy", "loc_state_from_numpy", "ekf15_state_from_numpy"]
+           "loc_params_from_numpy", "loc_state_from_numpy", "ekf15_state_from_numpy",
+           "fleet_state_from_numpy"]
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -77,3 +79,18 @@ def loc_state_from_numpy(d: dict, device) -> EKFLocState:
 def ekf15_state_from_numpy(d: dict, device) -> Ekf15State:
     """Ekf15State (single or batched) from a dict of numpy arrays."""
     return Ekf15State(**{k: _tensor(d[k], device).to(torch.float32) for k in Ekf15State._fields})
+
+
+def fleet_state_from_numpy(d: dict, device, seed: int = 0) -> FleetState:
+    """The SLAM + PF fleet's state from ``{"slam": {...}, "pf": {...}}`` dicts
+    of numpy arrays (the reference's FleetState as numpy): the batched
+    SlamState as ``slam_state_from_numpy`` makes it; particles (B, 6, N) and
+    t_prev (B,). The reference's PRNG keys have no counterpart and are
+    ignored; each mission gets its key from ``seed``
+    (``models.particle_filter.fleet_keys``)."""
+    p = d["pf"]
+    parts = _tensor(p["particles"], device).to(torch.float32)
+    return FleetState(
+        slam=slam_state_from_numpy(d["slam"], device),
+        pf=FleetPFState(particles=parts, key=fleet_keys(parts.shape[0], seed, device),
+                        t_prev=_tensor(p["t_prev"], device).to(torch.float32)))

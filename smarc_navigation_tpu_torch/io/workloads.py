@@ -1,8 +1,9 @@
 """Headline workload builders (numpy; port of the reference's
 ``io/workloads.py``): the SLAM missions at the 10 Hz ``ekf_slam.launch``
 tick with simulated MBES detections that the fleet replay is timed on, the
-combined PF + SLAM mission, and the localization and 15-state EKF fleets
-of the reference's benchmark (``bench.py`` sections 5 and 8)."""
+combined PF + SLAM mission, the localization and 15-state EKF fleets, the
+SAM dead-reckoning fleet and the closed-loop raycast fleet of the
+reference's benchmark (``bench.py``)."""
 
 from __future__ import annotations
 
@@ -116,3 +117,38 @@ def ekf15_fleet_timelines(cfg, duration: float, B: int, include_gps: bool = True
 
     m = sim.simulate(sim.MissionSpec(duration_s=duration, seed=seed))
     return fleet.batch_timelines([e15.ekf15_timeline(m, cfg, include_gps=include_gps)] * B)
+
+
+def sam_dr_fleet_timelines(duration: float, B: int, seed: int = 9):
+    """The benchmark's SAM dead-reckoning fleet (``bench.py:427-430``): one
+    simulated mission (seed 9) through ``sam_timeline`` tiled to B."""
+    from ..io import sim
+    from ..models import dead_reckoning as dr
+    from ..parallel import fleet
+
+    m = sim.simulate(sim.MissionSpec(duration_s=duration, seed=seed))
+    return fleet.batch_timelines([dr.sam_timeline(m)] * B)
+
+
+def raycast_fleet_inputs(B: int, T: int):
+    """The benchmark's closed-loop raycast fleet (``bench.py:622-645``), as
+    numpy: (cfg, MBESSpec, gt_tracks (B, T, 6) f32, rocks (B, 16, 3) f32,
+    rock masks (B, 16)). The config is L=32 slots, M=8; the rocks are
+    ``default_rng(0)`` uniforms over a 40 × 40 × 4 m box; every mission
+    flies the seed-1 30 s mission's ground truth at the 10 Hz SLAM tick."""
+    from ..io import sim
+    from ..ops import raycast
+
+    cfg = dataclasses.replace(
+        EKFSlamConfig(), max_landmarks=32, max_obs=8,
+        mhl_dist_mbes=1.0, q_mbes_diag=(0.1, 0.1, 0.1), r_diag=(1e-3,) * 6,
+    )
+    rng = np.random.default_rng(0)
+    base_m = sim.simulate(sim.MissionSpec(duration_s=30.0, seed=1))
+    spec = raycast.MBESSpec(num_beams=64, floor_z=-16.0, rock_radius=1.2,
+                            swath_rad=2.4, max_range=40.0)
+    lms = rng.uniform([0, -20, -16], [40, 20, -12], (B, 16, 3)).astype(np.float32)
+    lmm = np.ones((B, 16), bool)
+    ticks = np.arange(T) / cfg.system_freq
+    gt = np.tile(base_m.gt_at(ticks).astype(np.float32), (B, 1, 1))
+    return cfg, spec, gt, lms, lmm

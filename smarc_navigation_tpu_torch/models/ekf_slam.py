@@ -767,6 +767,28 @@ def _loop_setup(inp: dict, names: tuple):
     return params, s0, consts, a8_consts(params.R, params.R.dtype)
 
 
+def _full_tick(state: SlamState, band, odom_pose, valid, events: dict, params: SlamParams,
+               cfg: EKFSlamConfig, consts: dict, c12, streamed: bool = True):
+    """One tick of the full-Σ fleet -> (state, band, outputs): the batched
+    predict, then one ``da_lanes_pass`` (K1 + K2) per event sensor of
+    ``events`` ({name: (z (B, M, 3), mask (B, M))}), the first pass carrying
+    the predict's Σ transform, the band carried through every pass."""
+    st, a8 = _fleet_predict(state, odom_pose, valid, params, predict_sigma=not events, c12=c12)
+    out = {}
+    for n, (z, m) in events.items():
+        st, matched, band = da_lanes_pass(st, z, m, params, cfg, _SENSORS[n], a8=a8, band=band,
+                                          consts=consts[n], streamed=streamed)
+        a8 = None
+        out["matched_" + n] = matched
+    out["mu"] = st.mu[:, 0:6]
+    out["n_active"] = st.n_active
+    return st, band, out
+
+
+def _tick_events(inp: dict, names: tuple, t: int) -> dict:
+    return {n: (inp["z_" + n][t], inp["m_" + n][t]) for n in names}
+
+
 def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple, streamed: bool = True):
     """``run_fleet``'s tick loop on ``_loop_inputs`` -> (final state,
     outputs stacked (T, B, ...)), K2 on the given schedule. Capture-safe:
@@ -778,19 +800,10 @@ def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple, streamed: bool = Tru
     band = inp["band0"].expand(B, 24, L).contiguous()
     outs = []
     for t in range(T):
-        st, a8 = _fleet_predict(state, inp["odom_pose"][t], inp["valid"][t], params,
-                                predict_sigma=not names, c12=c12)
-        out = {}
-        for n in names:
-            st, matched, band = da_lanes_pass(
-                st, inp["z_" + n][t], inp["m_" + n][t], params, cfg, _SENSORS[n],
-                a8=a8, band=band, consts=consts[n], streamed=streamed)
-            a8 = None
-            out["matched_" + n] = matched
-        out["mu"] = st.mu[:, 0:6]
-        out["n_active"] = st.n_active
+        state, band, out = _full_tick(state, band, inp["odom_pose"][t], inp["valid"][t],
+                                      _tick_events(inp, names, t), params, cfg, consts, c12,
+                                      streamed)
         outs.append(out)
-        state = st
     return state, _stack_outputs(outs)
 
 

@@ -26,9 +26,15 @@ same values. With the same generator state, ``run_fast`` and
 ``run_fast_segmented`` draw the same numbers and give bitwise equal banks,
 noise included (the kernels' generator is keyed per tick and particle).
 
+A mission fleet (``parallel.fleet``) carries its banks as one
+``FleetPFState``: particles (B, 6, N) and one key per mission for the
+counter-based generator of ``ops.pf_kernels``, in place of the reference's
+(B, 2) PRNG keys. ``fleet_init``, ``fleet_predict`` and
+``fleet_update_resample`` step every bank at once, drawing on the banks'
+device: the same keys draw the same bits on the card and on the CPU.
+
 Not in this slice: the particle-sharded paths (``pmesh=``) raise
-``NotImplementedError``; ``fleet_update_resample`` is absent (ROADMAP.md
-Queue 1).
+``NotImplementedError`` (ROADMAP.md Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -60,6 +66,12 @@ class PFState(NamedTuple):
     particles: torch.Tensor     # (6, N)
     generator: torch.Generator
     t_prev: torch.Tensor
+
+
+class FleetPFState(NamedTuple):
+    particles: torch.Tensor     # (B, 6, N)
+    key: torch.Tensor           # (B,) int64 holding uint32 keys (pf_kernels.split_keys)
+    t_prev: torch.Tensor        # (B,)
 
 
 def make_params(
@@ -135,29 +147,37 @@ def log_weight(p: torch.Tensor, gps_map_xy: torch.Tensor, params: PFParams) -> t
         2 * math.pi * params.meas_var)
 
 
+def _col(x):
+    """A per-bank value (a number, or a tensor over the leading bank axes)
+    against the particle axis."""
+    return x[..., None] if isinstance(x, torch.Tensor) and x.dim() else x
+
+
 def motion_model_batch(parts: torch.Tensor, odom: torch.Tensor, dt,
                        noise: torch.Tensor) -> torch.Tensor:
-    """``motion_model`` over the whole (6, N) bank, row math."""
-    quat = odom[3:7]
-    v = odom[7:10] * dt
-    wz = odom[12]
-    abs_rpy = rpy_from_quat(quat)
+    """``motion_model`` over a whole (6, N) bank, row math; or over banks
+    (..., 6, N) with odom (..., 13), dt (...,) and noise (..., 6, N)."""
+    quat = odom[..., 3:7]
+    v = odom[..., 7:10] * _col(dt)
+    wz = odom[..., 12]
+    abs_rpy = rpy_from_quat(quat)[..., None]
 
-    yaw = wrap_angle(parts[5] + wz * dt + noise[5])
+    yaw = wrap_angle(parts[..., 5, :] + _col(wz * dt) + noise[..., 5, :])
     # roll/pitch are absolute (the reference overwrites their noise)
-    roll = torch.broadcast_to(abs_rpy[0], yaw.shape)
-    pitch = torch.broadcast_to(abs_rpy[1], yaw.shape)
+    roll = torch.broadcast_to(abs_rpy[..., 0, :], yaw.shape)
+    pitch = torch.broadcast_to(abs_rpy[..., 1, :], yaw.shape)
 
-    cr, sr = torch.cos(abs_rpy[0]), torch.sin(abs_rpy[0])
-    cp, sp = torch.cos(abs_rpy[1]), torch.sin(abs_rpy[1])
+    cr, sr = torch.cos(abs_rpy[..., 0, :]), torch.sin(abs_rpy[..., 0, :])
+    cp, sp = torch.cos(abs_rpy[..., 1, :]), torch.sin(abs_rpy[..., 1, :])
     cy, sy = torch.cos(yaw), torch.sin(yaw)
-    step_x = (cy * cp) * v[0] + (cy * sp * sr - sy * cr) * v[1] + (cy * sp * cr + sy * sr) * v[2]
-    step_y = (sy * cp) * v[0] + (sy * sp * sr + cy * cr) * v[1] + (sy * sp * cr - cy * sr) * v[2]
+    v0, v1, v2 = (v[..., i, None] for i in range(3))
+    step_x = (cy * cp) * v0 + (cy * sp * sr - sy * cr) * v1 + (cy * sp * cr + sy * sr) * v2
+    step_y = (sy * cp) * v0 + (sy * sp * sr + cy * cr) * v1 + (sy * sp * cr - cy * sr) * v2
 
-    x = parts[0] + step_x + noise[0]
-    y = parts[1] + step_y + noise[1]
-    z = torch.broadcast_to(odom[2], yaw.shape)
-    return torch.stack([x, y, z, roll, pitch, yaw], dim=0)
+    x = parts[..., 0, :] + step_x + noise[..., 0, :]
+    y = parts[..., 1, :] + step_y + noise[..., 1, :]
+    z = torch.broadcast_to(odom[..., 2, None], yaw.shape)
+    return torch.stack([x, y, z, roll, pitch, yaw], dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -184,16 +204,101 @@ def predict(state: PFState, odom: torch.Tensor, dt, params: PFParams,
 
 def _gps_weights(particles: torch.Tensor, gps_map_xy: torch.Tensor,
                  params: PFParams) -> torch.Tensor:
-    """Normalized GPS-likelihood weights of a (6, N) bank
-    (``auv_pf.py:135-166``); a non-finite particle gets zero weight. The
-    normalization is the order-pinned ``resampling.normalize_weights_det``."""
-    pos_map = params.r_m2o @ particles[0:3] + params.t_m2o[:, None]
-    dx = gps_map_xy[0] - pos_map[0]
-    dy = gps_map_xy[1] - pos_map[1]
+    """Normalized GPS-likelihood weights of a (6, N) bank, or of banks
+    (..., 6, N) with fixes (..., 2) (``auv_pf.py:135-166``); a non-finite
+    particle gets zero weight. The normalization is the order-pinned
+    ``resampling.normalize_weights_det``."""
+    pos_map = params.r_m2o @ particles[..., 0:3, :] + params.t_m2o[:, None]
+    dx = gps_map_xy[..., 0, None] - pos_map[..., 0, :]
+    dy = gps_map_xy[..., 1, None] - pos_map[..., 1, :]
     logw = -0.5 * (dx * dx + dy * dy) / params.meas_var - torch.log(
         2 * math.pi * params.meas_var)
     logw = torch.where(torch.isfinite(logw), logw, -math.inf)
     return resampling.normalize_weights_det(logw)
+
+
+def fleet_keys(batch: int, seed: int = 0, device="cuda") -> torch.Tensor:
+    """(B,) per-mission keys from one seed (the reference splits one PRNG
+    key into B)."""
+    return pf_kernels.split_keys(torch.tensor(seed, dtype=torch.int64, device=device), batch)
+
+
+def fleet_normals(key: torch.Tensor, n: int, rows: int) -> torch.Tensor:
+    """(B, rows, n) standard normals under keys (B,): row 2r and 2r+1 are
+    the Box-Muller pair of draws 2r, 2r+1 of the counter-based generator
+    (``pf_kernels.normal_pair``), so rows x, y, yaw of a predict are the
+    kernels' own ``normals3`` layout when ``rows`` = 3."""
+    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    zs = [z for r in range((rows + 1) // 2) for z in pf_kernels.normal_pair(key[:, None], idx, 2 * r)]
+    return torch.stack(zs[:rows], 1)
+
+
+def fleet_init(batch: int, n_particles: int, params: PFParams, seed: int = 0) -> FleetPFState:
+    """Every mission's initial bank on the device of ``params``, drawn
+    under its own key (``fleet_keys``), as ``init_state`` draws one bank."""
+    like = params.init_cov
+    key, sub = pf_kernels.split_keys(fleet_keys(batch, seed, like.device), 2).unbind(-1)
+    noise = fleet_normals(sub, n_particles, 6).to(like.dtype)
+    return FleetPFState(particles=(noise * torch.sqrt(params.init_cov)[:, None]).contiguous(),
+                        key=key, t_prev=like.new_zeros(batch))
+
+
+def fleet_predict(states: FleetPFState, odom: torch.Tensor, ticks: torch.Tensor,
+                  fresh: torch.Tensor, params: PFParams) -> FleetPFState:
+    """``predict`` of every bank whose odometry is fresh (odom (B, 13),
+    ticks and fresh (B,)); the others, their keys and their t_prev pass
+    unchanged, as under the reference's vmapped ``lax.cond``. No host
+    sync."""
+    parts = states.particles
+    key, sub = pf_kernels.split_keys(states.key, 2).unbind(-1)
+    n3 = fleet_normals(sub, parts.shape[-1], 3).to(parts.dtype)
+    sd = torch.sqrt(params.motion_cov)
+    noise = torch.zeros_like(parts)
+    noise[:, 0] = n3[:, 0] * sd[0]
+    noise[:, 1] = n3[:, 1] * sd[1]
+    noise[:, 5] = n3[:, 2] * sd[5]
+    dt = torch.clamp(ticks - states.t_prev, min=0.0)
+    moved = motion_model_batch(parts, odom, dt, noise)
+    return FleetPFState(particles=torch.where(fresh[:, None, None], moved, parts),
+                        key=torch.where(fresh, key, states.key),
+                        t_prev=torch.where(fresh, ticks, states.t_prev))
+
+
+def fleet_update_resample(
+    states: FleetPFState,       # particles (B, 6, N), key (B,)
+    gps_map_xy: torch.Tensor,   # (B, 2)
+    params: PFParams,
+    pmesh=None,
+    use_pallas: bool = False,
+    u: torch.Tensor | None = None,
+    noise: torch.Tensor | None = None,
+    scheme: str = "systematic",
+) -> FleetPFState:
+    """Batched ``update_resample`` for a mission fleet, every bank at once:
+    the GPS weights, the ancestors (by default the blocked-CDF systematic
+    sampler), one gather along the particle axis, then the resample jitter.
+
+    Each mission's key splits into its next key and the keys of the
+    resample uniforms and of the jitter, as the reference splits its PRNG
+    key. ``u`` ((B,) for "systematic", (B, N) for the other schemes) and
+    ``noise`` (B, 6, N) standard normals replace those draws. As in the
+    reference without ``pmesh``, ``use_pallas`` changes nothing here."""
+    if pmesh is not None:
+        raise NotImplementedError(f"pmesh= is {_MULTI}")
+    parts = states.particles
+    B, rows, n = parts.shape
+    key, k_res, k_noise = pf_kernels.split_keys(states.key, 3).unbind(-1)
+    if u is None:
+        idx = (torch.zeros_like(k_res) if scheme == "systematic"
+               else torch.arange(n, dtype=torch.int64, device=parts.device))
+        u = pf_kernels.uniforms(k_res if scheme == "systematic" else k_res[:, None], idx, 0)
+    w = _gps_weights(parts, gps_map_xy, params)
+    anc = resampling.SCHEMES[scheme](u.to(w.dtype), w).long()
+    parts = torch.gather(parts, 2, anc[:, None, :].expand(B, rows, n))
+    if noise is None:
+        noise = fleet_normals(k_noise, n, 6).to(parts.dtype)
+    parts = parts + noise * torch.sqrt(params.res_noise_cov)[None, :, None]
+    return FleetPFState(particles=parts, key=key, t_prev=states.t_prev)
 
 
 def update_resample(
@@ -230,13 +335,13 @@ def update_resample(
 
 def estimate(particles: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean pose (circular yaw mean) + 3×3 position sample covariance
-    (``auv_pf.py:218-253``)."""
-    mean = torch.mean(particles, dim=1)
-    s = torch.mean(torch.sin(particles[5]))
-    c = torch.mean(torch.cos(particles[5]))
-    mean = torch.cat([mean[0:5], torch.atan2(s, c)[None]])
-    d = particles[0:3] - mean[0:3, None]
-    cov = (d @ d.T) / particles.shape[1]
+    (``auv_pf.py:218-253``) of a (6, N) bank, or of each bank of (..., 6, N)."""
+    mean = torch.mean(particles, dim=-1)
+    s = torch.mean(torch.sin(particles[..., 5, :]), -1)
+    c = torch.mean(torch.cos(particles[..., 5, :]), -1)
+    mean = torch.cat([mean[..., 0:5], torch.atan2(s, c)[..., None]], -1)
+    d = particles[..., 0:3, :] - mean[..., 0:3, None]
+    cov = (d @ d.transpose(-1, -2)) / particles.shape[-1]
     return mean, cov
 
 

@@ -60,12 +60,14 @@ def n_partials(n: int) -> int:
 # counter-based generator (bitwise the device functions of csrc/pf_rng.cuh)
 # ---------------------------------------------------------------------------
 # uint32 values are held in int64 tensors. A product of two uint32 values
-# overflows int64, so products are formed from 16-bit halves, each partial
-# product below 2^48: only the low 32 bits are kept, as in the CUDA source.
+# may overflow int64, so a constant c >= 2^31 is split as 2^31 + c': x·c'
+# stays below 2^63, and x·2^31 mod 2^32 is (x & 1) << 31. Only the low 32
+# bits are kept, as in the CUDA source.
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    lo, hi = x & 0xFFFF, x >> 16
-    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+    if c < 1 << 31:
+        return (x * c) & _M32
+    return (x * (c - (1 << 31)) + ((x & 1) << 31)) & _M32
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
@@ -83,6 +85,16 @@ def _draw_key(seed: torch.Tensor, draw: int) -> torch.Tensor:
     return _mix32((s + ((_GOLDEN * (draw + 1)) & _M32)) & _M32)
 
 
+def split_keys(key: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., n) child keys of keys (...,), int64 tensors of uint32 values:
+    the counterpart of ``jax.random.split``. Child i is
+    mix32(mix32(key ^ golden) + i), a stream apart from the draw keys that
+    ``uniforms`` derives from the parent."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    k = _mix32((key.to(torch.int64) & _M32) ^ _GOLDEN)
+    return _mix32((k[..., None] + i) & _M32)
+
+
 def uniforms(seed, idx: torch.Tensor, draw: int) -> torch.Tensor:
     """(0, 1) f32 uniforms of draw ``draw`` for particles ``idx`` (int64,
     global indices) under ``seed``: 24 bits of mix32(mix32(idx ^ k) + k)."""
@@ -92,7 +104,7 @@ def uniforms(seed, idx: torch.Tensor, draw: int) -> torch.Tensor:
     return (b >> 8).to(torch.float32) * (1.0 / 16777216.0) + (0.5 / 16777216.0)
 
 
-def _normal_pair(seed, idx: torch.Tensor, draw: int):
+def normal_pair(seed, idx: torch.Tensor, draw: int):
     """Box-Muller over draws (draw, draw+1) -> (r cos 2πu, r sin 2πu)."""
     r = torch.sqrt(-2.0 * torch.log(uniforms(seed, idx, draw)))
     ang = _TWO_PI * uniforms(seed, idx, draw + 1)
@@ -125,9 +137,9 @@ def normals3(seed, idx: torch.Tensor, nxy: bool = True, nyaw: bool = True):
     the components that are switched off."""
     nx = ny = nw = None
     if nxy:
-        nx, ny = _normal_pair(seed, idx, 0)
+        nx, ny = normal_pair(seed, idx, 0)
     if nyaw:
-        nw, _ = _normal_pair(seed, idx, 2)
+        nw, _ = normal_pair(seed, idx, 2)
     return nx, ny, nw
 
 

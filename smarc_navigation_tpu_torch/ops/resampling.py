@@ -4,7 +4,9 @@
 The four FilterPy-style samplers of the reference
 (``auv_particle_filter/scripts/resampling.py:27-194``) as cumsum +
 searchsorted / scatter + running max with static shapes. Every sampler
-takes normalized weights (N,) and returns (N,) int32 ancestor indices.
+takes normalized weights (..., N) and returns (..., N) int32 ancestor
+indices: leading axes are independent banks (a mission fleet), each
+resampled along its last axis as a single (N,) bank would be.
 
 Where the JAX package takes a PRNG key, these take their uniforms instead
 (``u`` a scalar for the systematic scheme, an (N,) array for the others) or
@@ -35,57 +37,57 @@ def _uniforms(u, shape, like: torch.Tensor) -> torch.Tensor:
     return u
 
 
+def _blocks(x: torch.Tensor) -> torch.Tensor:
+    """(..., N) -> (..., N / CDF_BLOCK, CDF_BLOCK)."""
+    return x.reshape(*x.shape[:-1], x.shape[-1] // CDF_BLOCK, CDF_BLOCK)
+
+
+def _tiles(n: int) -> bool:
+    return n % CDF_BLOCK == 0 and n > CDF_BLOCK
+
+
 def blocked_cdf(weights: torch.Tensor) -> torch.Tensor:
-    """Prefix sum with a fixed two-level tree (intra-block scan + scan of
-    block sums); a plain cumsum for banks that do not tile by CDF_BLOCK."""
-    n = weights.shape[0]
-    if n % CDF_BLOCK or n <= CDF_BLOCK:
-        return torch.cumsum(weights, 0)
-    rows = weights.reshape(n // CDF_BLOCK, CDF_BLOCK)
-    rowcum = torch.cumsum(rows, 1)
-    prefix = torch.cat([weights.new_zeros(1), torch.cumsum(rowcum[:, -1], 0)[:-1]])
-    return (rowcum + prefix[:, None]).reshape(n)
+    """Prefix sum along the last axis with a fixed two-level tree
+    (intra-block scan + scan of block sums); a plain cumsum for banks that
+    do not tile by CDF_BLOCK."""
+    if not _tiles(weights.shape[-1]):
+        return torch.cumsum(weights, -1)
+    rowcum = torch.cumsum(_blocks(weights), -1)
+    tot = torch.cumsum(rowcum[..., -1], -1)
+    prefix = torch.cat([tot.new_zeros(tot.shape[:-1] + (1,)), tot[..., :-1]], -1)
+    return (rowcum + prefix[..., None]).reshape(weights.shape)
 
 
 def _fold_half(x: torch.Tensor) -> torch.Tensor:
-    """Radix-2 fold-in-half sum of a 1-D vector zero-padded to a power of
-    two: contiguous halves only, so every addition is elementwise."""
-    n = x.shape[0]
+    """Radix-2 fold-in-half sums along the last axis, zero-padded to a
+    power of two: contiguous halves only, so every addition is
+    elementwise."""
+    n = x.shape[-1]
     p = 1 << max(n - 1, 0).bit_length()
     if p != n:
-        x = torch.cat([x, x.new_zeros(p - n)])
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (p - n,))], -1)
     while p > 1:
         p //= 2
-        x = x[:p] + x[p:]
-    return x[0]
-
-
-def _row_fold(y: torch.Tensor) -> torch.Tensor:
-    """Per-row fold-in-half sums of a (rows, CDF_BLOCK) view."""
-    c = y.shape[1]
-    while c > 1:
-        c //= 2
-        y = y[:, :c] + y[:, c:]
-    return y[:, 0]
+        x = x[..., :p] + x[..., p:]
+    return x[..., 0]
 
 
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
-    """Bit-deterministic sum of a 1-D vector in the reference's pinned
+    """Bit-deterministic sum along the last axis in the reference's pinned
     two-level fold-in-half order (within CDF_BLOCK-wide rows, then across the
     row sums). Every addition is an elementwise IEEE f32 add, so the value
     is the reference's bit for bit on any backend."""
-    n = x.shape[0]
-    if n % CDF_BLOCK or n <= CDF_BLOCK:
+    if not _tiles(x.shape[-1]):
         return _fold_half(x)
-    return _fold_half(_row_fold(x.reshape(n // CDF_BLOCK, CDF_BLOCK)))
+    return _fold_half(_fold_half(_blocks(x)))
 
 
 def normalize_weights_det(logw: torch.Tensor) -> torch.Tensor:
     """exp(logw − max) + 1e-30, scaled by one ``tree_sum`` (the reference's
-    add-floor-then-renormalize, ``auv_pf.py:163-166``)."""
-    m = torch.max(logw)
+    add-floor-then-renormalize, ``auv_pf.py:163-166``), per bank."""
+    m = torch.amax(logw, -1, keepdim=True)
     w = torch.exp(logw - m) + 1e-30
-    return w / tree_sum(w)
+    return w / tree_sum(w)[..., None]
 
 
 def systematic_counts(weights: torch.Tensor, u) -> torch.Tensor:
@@ -94,22 +96,23 @@ def systematic_counts(weights: torch.Tensor, u) -> torch.Tensor:
 
     The cummax repair is the reference's blockwise form (within CDF_BLOCK
     rows, then a carry max across rows), equal to the global running max."""
-    n = weights.shape[0]
-    u = _uniforms(u, (), weights)
+    n = weights.shape[-1]
+    u = _uniforms(u, weights.shape[:-1], weights)
     cdf = blocked_cdf(weights).clone()
-    cdf[-1] = 1.0   # guard round-off (the reference does the same)
-    m_cum = torch.clamp(torch.ceil(n * cdf - u), 0, n).to(torch.int32)
-    if n % CDF_BLOCK or n <= CDF_BLOCK:
-        return torch.cummax(m_cum, 0).values
-    rows = torch.cummax(m_cum.reshape(n // CDF_BLOCK, CDF_BLOCK), 1).values
-    carry = torch.cummax(rows[:, -1], 0).values
-    prev = torch.cat([carry.new_full((1,), torch.iinfo(torch.int32).min), carry[:-1]])
-    return torch.maximum(rows, prev[:, None]).reshape(n)
+    cdf[..., -1].fill_(1.0)   # guard round-off (the reference does the same)
+    m_cum = torch.clamp(torch.ceil(n * cdf - u[..., None]), 0, n).to(torch.int32)
+    if not _tiles(n):
+        return torch.cummax(m_cum, -1).values
+    rows = torch.cummax(_blocks(m_cum), -1).values
+    carry = torch.cummax(rows[..., -1], -1).values
+    prev = torch.cat([carry.new_full(carry.shape[:-1] + (1,), torch.iinfo(torch.int32).min),
+                      carry[..., :-1]], -1)
+    return torch.maximum(rows, prev[..., None]).reshape(m_cum.shape)
 
 
 def _inverse_cdf(weights: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    cdf = torch.cumsum(weights, 0).clone()
-    cdf[-1] = 1.0
+    cdf = torch.cumsum(weights, -1).clone()
+    cdf[..., -1].fill_(1.0)
     return torch.searchsorted(cdf, positions).to(torch.int32)
 
 
@@ -117,16 +120,16 @@ def _expand_blocks(m_cum: torch.Tensor) -> torch.Tensor:
     """Ancestor indices from a monotone count vector: slot j belongs to the
     smallest i with m_cum[i] > j. Scatter each ancestor's index at its start
     slot, then a running max (the reference's sort-free form)."""
-    n = m_cum.shape[0]
-    starts = torch.cat([m_cum.new_zeros(1), m_cum[:-1]])
+    n = m_cum.shape[-1]
+    starts = torch.cat([m_cum.new_zeros(m_cum.shape[:-1] + (1,)), m_cum[..., :-1]], -1)
     counts = m_cum - starts
     ids = torch.arange(n, dtype=torch.int32, device=m_cum.device)
     vals = torch.where(counts > 0, ids, torch.full_like(ids, -1))
     # a start of n belongs to a zero-count tail ancestor: clamped, its -1
     # mark cannot change the max (the reference drops it)
-    marks = torch.full((n,), -1, dtype=torch.int32, device=m_cum.device)
-    marks = marks.scatter_reduce(0, starts.clamp(max=n - 1).long(), vals, "amax")
-    return torch.cummax(marks, 0).values
+    marks = torch.full(m_cum.shape, -1, dtype=torch.int32, device=m_cum.device)
+    marks = marks.scatter_reduce(-1, starts.clamp(max=n - 1).long(), vals, "amax")
+    return torch.cummax(marks, -1).values
 
 
 def systematic_resample(u, weights: torch.Tensor) -> torch.Tensor:
@@ -137,8 +140,8 @@ def systematic_resample(u, weights: torch.Tensor) -> torch.Tensor:
 
 def stratified_resample(u, weights: torch.Tensor) -> torch.Tensor:
     """One uniform per stratum, ``u`` (N,) (``resampling.py:80-114``)."""
-    n = weights.shape[0]
-    u = _uniforms(u, (n,), weights)
+    n = weights.shape[-1]
+    u = _uniforms(u, weights.shape, weights)
     positions = (u + torch.arange(n, dtype=weights.dtype, device=weights.device)) / n
     return _inverse_cdf(weights, positions)
 
@@ -147,30 +150,29 @@ def multinomial_resample(u, weights: torch.Tensor) -> torch.Tensor:
     """IID draws from the weight distribution, ``u`` (N,)
     (``resampling.py:171-194``; the reference's sort of its uniforms only
     permutes slot order)."""
-    n = weights.shape[0]
-    return _inverse_cdf(weights, _uniforms(u, (n,), weights))
+    return _inverse_cdf(weights, _uniforms(u, weights.shape, weights))
 
 
 def residual_resample(u, weights: torch.Tensor) -> torch.Tensor:
     """Deterministic ⌊N·w⌋ copies + multinomial on the residual, ``u`` (N,)
     (``resampling.py:27-76``): slots [0, k) deterministic, [k, N) from the
     residual draws."""
-    n = weights.shape[0]
-    u = _uniforms(u, (n,), weights)
+    n = weights.shape[-1]
+    u = _uniforms(u, weights.shape, weights)
     scaled = n * weights
     copies = torch.floor(scaled)
-    k = torch.sum(copies).to(torch.int32)
+    k = torch.sum(copies, -1, keepdim=True).to(torch.int32)
 
-    cum = torch.cumsum(copies, 0).to(torch.int32)
+    cum = torch.cumsum(copies, -1).to(torch.int32)
     det_idx = torch.clamp(_expand_blocks(cum), 0, n - 1)
 
     resid = scaled - copies
-    resid = resid / torch.clamp(torch.sum(resid), min=1e-30)
+    resid = resid / torch.clamp(torch.sum(resid, -1, keepdim=True), min=1e-30)
     tail_idx = _inverse_cdf(resid, u)
 
     ar = torch.arange(n, device=weights.device)
     shift = torch.clamp(ar - k, 0, n - 1)
-    return torch.where(ar < k, det_idx, tail_idx[shift])
+    return torch.where(ar < k, det_idx, torch.gather(tail_idx, -1, shift.expand(tail_idx.shape)))
 
 
 SCHEMES = {

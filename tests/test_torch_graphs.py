@@ -2,9 +2,11 @@
 
 On the CPU (tier-1): one tick of each graphed loop (the SLAM fleet in both
 covariance semantics, the localization fleet, the 15-state fleet in both
-wirings of the dual replay) runs under a dispatch mode that records every
-ATen call, with the kernel entry points replaced by shape-correct stubs
-(the plain versions never run under a capture). No call may sync with the
+wirings of the dual replay, the closed-loop raycast fleet, the SLAM + PF
+fleet in both PF schemes) runs under a
+dispatch mode that records every ATen call, with the kernel entry points
+replaced by shape-correct stubs (the plain versions never run under a
+capture). No call may sync with the
 host (``.item()``, ``bool(t)``, ``nonzero``) or build a tensor from host
 data (``lift_fresh``, a copy between devices): either one fails a CUDA
 graph capture on the card. The guard is itself held to flag each of those.
@@ -159,14 +161,60 @@ def _e15_fleet(cfg):
 
 
 LOOPS = ["slam_full-mbes", "slam_full-mbes+fls", "slam_marginal-mbes",
-         "slam_marginal-mbes+fls", "loc", "ekf15-local", "ekf15-global"]
+         "slam_marginal-mbes+fls", "loc", "ekf15-local", "ekf15-global", "raycast",
+         "slam_pf-residual", "slam_pf-systematic"]
+
+
+def _raycast_tick():
+    """One tick of the raycast fleet's loop (two missions, rocks in view)."""
+    from smarc_navigation_tpu_torch.ops.raycast import MBESSpec
+
+    cfg = dataclasses.replace(combined_slam_cfg(), max_landmarks=6, max_obs=3)
+    spec = MBESSpec(num_beams=16, floor_z=-16.0, rock_radius=1.2, swath_rad=2.4, max_range=40.0)
+    gt = torch.zeros(2, 1, 6)
+    lms = torch.tensor([[0.0, 1.0, -10.0], [0.0, -3.0, -12.0]]).expand(2, 2, 3)
+    inp = fleet._raycast_inputs(gt, lms, torch.ones(2, 2, dtype=torch.bool), cfg,
+                                S.make_params(cfg, device="cpu"), spec)
+    return lambda: fleet._raycast_loop(inp, cfg, spec)
+
+
+def _slam_pf_tick(scheme):
+    """One tick of the SLAM + PF fleet's loop (two missions, a detection, a
+    GPS fix)."""
+    import numpy as np
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.models import particle_filter as pf
+    from smarc_navigation_tpu_torch.ops.timeline import build_timeline
+
+    cfg = dataclasses.replace(combined_slam_cfg(), max_landmarks=6, max_obs=3)
+    stamps = np.arange(1, 3) / cfg.system_freq
+    odom13 = np.zeros((2, 13))
+    odom13[:, 6] = 1.0
+    raw = dict(t0=0.0, t1=2 / cfg.system_freq, freq_hz=cfg.system_freq,
+               channels={"odom": (stamps, odom13), "gps": (stamps, odom13[:, :2]),
+                         "diving": (stamps, np.zeros((2, 1)))},
+               events={"mbes": (stamps[:1], np.ones((1, 3)), np.arange(1), cfg.max_obs)})
+    tl = fleet.batch_timelines([build_timeline(**raw)] * 2).to("cpu").map(lambda x: x[:, :1])
+    pp = pf.make_params(PFConfig(particle_count=16), device="cpu")
+    inp, names = fleet._fleet_inputs(tl, cfg, S.make_params(cfg, device="cpu"), pp,
+                                     pf.fleet_init(2, 16, pp))
+    return lambda: fleet._fleet_loop(inp, cfg, names, scheme)
 
 
 @pytest.mark.parametrize("loop", LOOPS)
 def test_tick_body_is_capture_safe(loop, monkeypatch):
     """The prologue, one tick and the epilogue of each graphed loop, as the
     capture runs them on the card, with nothing a capture refuses."""
-    if loop.startswith("slam"):
+    if loop == "raycast":
+        monkeypatch.setattr(k1, "da_lanes", _da_stub)
+        monkeypatch.setattr(k2, "sequential_update_fleet", _k2_stub)
+        run = _raycast_tick()
+    elif loop.startswith("slam_pf"):
+        monkeypatch.setattr(k1, "da_lanes", _da_stub)
+        monkeypatch.setattr(k2, "sequential_update_fleet", _k2_stub)
+        run = _slam_pf_tick(loop.split("-")[1])
+    elif loop.startswith("slam"):
         monkeypatch.setattr(k1, "da_lanes", _da_stub)
         monkeypatch.setattr(k2, "sequential_update_fleet", _k2_stub)
         monkeypatch.setattr(k2, "sequential_update_marginal_fleet", _k4_stub)

@@ -1,10 +1,11 @@
 """The port stands alone: it runs with JAX and flax blocked (the SLAM fleet
 replay in both covariance semantics, the fleet assignment, the PF kernel
-path, the combined mission, the EKF-localization fleet and the 15-state
-dual-EKF fleet, at a tiny size on the CPU), and its numpy host code
-(simulator, timeline construction, fleet batching, the PF, combined,
-localization and 15-state workloads) produces arrays bitwise equal to the
-reference package's (the 15-state timeline's attitude and control columns,
+path, the combined mission, the EKF-localization fleet, the 15-state
+dual-EKF fleet, dead reckoning, sonar, the raycast fleet and the SLAM + PF
+fleet, at a tiny size on the CPU), and its numpy host code (simulator,
+timeline construction, fleet batching, the PF, combined, localization,
+15-state, dead-reckoning and raycast workloads) produces arrays bitwise
+equal to the reference package's (the 15-state timeline's attitude and control columns,
 computed in float32 by each framework, to 1e-6)."""
 
 import dataclasses
@@ -64,6 +65,26 @@ etl = workloads.ekf15_fleet_timelines(ecfg, 0.3, 2).to("cpu")
 (_, el), (_, eg), mo = ekf_15state.run_dual_fleet(etl, etl, ecfg)
 assert el["x"].shape == (16, 2, 15) and mo.trans.shape == (16, 2, 3)
 assert bool(torch.isfinite(mo.trans).all() and torch.isfinite(eg["p_diag"]).all())
+from smarc_navigation_tpu_torch.models import dead_reckoning as dr
+from smarc_navigation_tpu_torch.ops import oned_kf, sonar
+dtl = workloads.sam_dr_fleet_timelines(0.5, 2).to("cpu")
+assert dr.run_sam_dr_vectorized(dtl).shape == (2, 26, 9) and dr.run_sam_dr(dtl).shape == (2, 26, 9)
+assert oned_kf.smooth(torch.ones(4, 3))[1].shape == (4, 3)
+img = torch.zeros(32, 32)
+img[8:16, 10:18] = 1.0
+_c, _a, bm = sonar.detect_blobs(img, min_area=16)
+assert int(bm.sum()) == 1
+rcfg, spec, gt, lms, lmm = workloads.raycast_fleet_inputs(2, 3)
+rfin, (rmu, rna) = fleet.run_raycast_fleet(torch.as_tensor(gt), torch.as_tensor(lms),
+                                           torch.as_tensor(lmm), rcfg,
+                                           ekf_slam.make_params(rcfg, device="cpu"), spec,
+                                           use_da_kernel=True)
+assert rmu.shape == (2, 3, 6) and rna.shape == (2, 3) and bool(torch.isfinite(rfin.Sigma).all())
+ftl = workloads.slam_fleet_timelines(cfg, 0.2, 2).to("cpu")
+ff, fo = fleet.run_fleet(ftl, cfg, ekf_slam.make_params(cfg, device="cpu"), PFConfig(particle_count=16),
+                         pf.make_params(PFConfig(particle_count=16), device="cpu"), 16,
+                         pf_scheme="systematic")
+assert fo["pf"]["mean"].shape == (3, 2, 6) and bool(torch.isfinite(ff.pf.particles).all())
 loaded = sorted(m for m, v in sys.modules.items() if v is not None and
                 m.split(".")[0] in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"))
 assert not loaded, loaded
@@ -165,6 +186,34 @@ def test_filter_fleet_builders_match_reference():
                     {k: v for k, v in want.items() if k not in float32_cols})
     for k in float32_cols:
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-6, err_msg=k)
+
+
+def test_dr_and_raycast_builders_match_reference():
+    """The SAM dead-reckoning fleet and the raycast fleet's inputs against
+    the reference's numpy, built as ``bench.py`` builds them
+    (``bench.py:427-430`` and ``:622-645``)."""
+    from smarc_navigation_tpu.io import sim as jsim
+    from smarc_navigation_tpu.models import dead_reckoning as jdr
+    from smarc_navigation_tpu.ops import raycast as jraycast
+    from smarc_navigation_tpu.parallel import fleet as jfleet
+    from smarc_navigation_tpu_torch.io import workloads
+
+    jm = jsim.simulate(jsim.MissionSpec(duration_s=3.0, seed=9))
+    _assert_bitwise(_flat(workloads.sam_dr_fleet_timelines(3.0, 3)),
+                    _flat(jfleet.batch_timelines([jdr.sam_timeline(jm)] * 3)))
+
+    cfg, spec, gt, lms, lmm = workloads.raycast_fleet_inputs(5, 31)
+    rng = np.random.default_rng(0)
+    base_m = jsim.simulate(jsim.MissionSpec(duration_s=30.0, seed=1))
+    want_lms = np.asarray(rng.uniform([0, -20, -16], [40, 20, -12], (5, 16, 3)), np.float32)
+    ticks = np.arange(31) / cfg.system_freq
+    want_gt = np.tile(base_m.gt_at(ticks).astype(np.float32), (5, 1, 1))
+    for got, want in ((gt, want_gt), (lms, want_lms), (lmm, np.ones((5, 16), bool))):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert tuple(spec) == tuple(jraycast.MBESSpec(num_beams=64, floor_z=-16.0, rock_radius=1.2,
+                                                   swath_rad=2.4, max_range=40.0))
+    assert (cfg.max_landmarks, cfg.max_obs, cfg.mhl_dist_mbes, cfg.q_mbes_diag, cfg.r_diag) == (
+        32, 8, 1.0, (0.1, 0.1, 0.1), (1e-3,) * 6)
 
 
 def test_batch_timelines_checks_every_timeline():
