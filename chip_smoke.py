@@ -133,6 +133,28 @@ Phases (any failure exits nonzero; nothing is caught):
      eager (the second timeline: the missions rotated), timed as the median
      of five graphed replays; K1, K2 (phase 1) and K12 once per tick; their
      shares, the busy share and the replay's 12 heaviest kernels.
+ 20. the mission CLI (``smarc_navigation_tpu_torch.run``) on the card, at
+     its defaults: (a) the native host library builds; its JV reaches
+     scipy's optimum on random tables and equals ``assignment.hungarian``
+     on tables with exact ties; its binner is bitwise the Python loop on the
+     sample log's MBES stream; (b) ``run.main(["replay", "--log",
+     "data/sample_mission.npz"])`` (T=901, L=64, M=8): K3 (phase 1 + K12)
+     once per tick with an MBES burst, counted from the log's timeline;
+     ``ekf_slam.run`` of the log on the card against the CPU over its
+     first 30 s (matched_mbes exact, poses within POSE_TOL), and the same
+     command with ``--device cpu`` on the log's first 30 s against the
+     report of the card run's first 30 s (n_landmarks_mapped exact, pose
+     metrics within POSE_TOL); (c) ``demo --duration
+     60`` (K3 launched), and ``demo --duration 30`` on the card and the
+     CPU (n_landmarks_mapped exact, final and mean error within POSE_TOL);
+     (d) ``pf --particles 1048576 --pallas``: K5 once per segment and K7
+     once per GPS update in each of the CLI's two replays, xy_err_mean_m
+     under PF_CLI_ERR_M, beside the dense path's at the same N; (e)
+     ``io.replay.run_chunked`` of the single-mission SLAM step on the log
+     (chunks of 128, a checkpoint after each) bitwise ``ekf_slam.run`` on
+     the card (final state and outputs), a resume from the last checkpoint
+     but one bitwise the tail, a NaN-injecting step raising
+     ``ReplayError``, and ``profile_replay``'s trace naming K3's kernels.
 Phases 5, 5b, 5c, 14, 15, 17 and 19 run each replay's tick loop as a cached
 CUDA graph (``utils/graphs.py``), its default on the card. Before each of
 those nine replays is timed, its eager loop (``graph=False``) runs on the same
@@ -156,7 +178,8 @@ entry also holds its FLS form, one mission, K11 on its tables, the L=256
 forms, the raycast fleet's B=1024 and its launches on each main path (the
 combined mission's, the raycast fleet's and the SLAM + PF fleet's too),
 K2's and K12's their B=1024 times and launches by path, K4's its time at
-M=16;
+M=16, K3's and K12's their launches on the CLI's replay and demo and the
+chunked replay, K5's and K7's on the CLI's pf;
 ``library_ms`` (K7's ``torch.repeat_interleave``, K12's ``torch.baddbmm``) is the device time of all
 the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
@@ -1946,6 +1969,273 @@ def slam_pf_replay(dev, cfg, params, tl, counters):
     return n, g
 
 
+CLI_CPU_S = 30.0   # phase 20: the CPU side of each card-vs-CPU CLI check (the card runs whole)
+CHUNK = 128        # phase 20e: ticks per chunk of the chunked SLAM replay
+# phase 20d: the pf mission's GPS fixes (std 0.3 m, 1 Hz, the vehicle never
+# dives below the GPS cutoff) hold the bank to within a few fix sigmas: 1 m
+# is ~3 sigma of a single fix, far below a lost filter's growing error
+PF_CLI_ERR_M = 1.0
+SAMPLE_LOG = "data/sample_mission.npz"
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output (a CLI's printed report) kept
+    out of this script's."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def cut_log(path, seconds):
+    """The sample log's first ``seconds`` written as a log of its own."""
+    from smarc_navigation_tpu_torch.io import logs
+
+    streams, meta = logs.load_log(SAMPLE_LOG)
+    base = min(s["stamps"][0] for s in streams.values() if len(s["stamps"]))
+    logs.save_log(path, {n: {k: v[s["stamps"] < base + seconds + 1e-9] for k, v in s.items()}
+                         for n, s in streams.items()}, meta=meta)
+    return path
+
+
+def close_reports(card, cpu, keys, what):
+    for k in keys:
+        if not abs(card[k] - cpu[k]) <= POSE_TOL:
+            raise AssertionError(f"{what}: {k} {card[k]:.6f} on the card, {cpu[k]:.6f} on the CPU")
+
+
+def cli_phase(dev):
+    """Phase 20: the mission CLI on the card (see the module docstring).
+    Returns {path: launches} of K3, K12, K5 and K7."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from smarc_navigation_tpu_torch import native, run
+    from smarc_navigation_tpu_torch.configs import EKFSlamConfig
+    from smarc_navigation_tpu_torch.io import logs, observability, replay, sim
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.ops import assignment
+    from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    counters = [K2.sequential_update, K2.symmetric_downdate, PK.predict_call_multi,
+                PK.expand_gather_call]
+
+    def reset():
+        for f in counters:
+            f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in counters}
+
+    # --- 20a. the native JV and binner ---------------------------------------
+    if not native.available():
+        raise AssertionError("native: the host library did not build (g++)")
+    rng = np.random.default_rng(0)
+    for _ in range(50):
+        R, C = int(rng.integers(8, 80)), int(rng.integers(1, 9))
+        cost = rng.uniform(0, 10, (R + C, C))
+        a, b = native.jv_assign(cost), assignment._scipy_solve(cost)
+        ca, cb = cost[a, np.arange(C)].sum(), cost[b, np.arange(C)].sum()
+        if not abs(ca - cb) <= 1e-9 * max(1.0, abs(cb)):
+            raise AssertionError(f"native JV: cost {ca} against scipy's optimum {cb}")
+    n_scipy_differs = 0
+    for _ in range(50):
+        L, M = int(rng.integers(3, 65)), int(rng.integers(1, 9))
+        cost = rng.integers(0, 4, (L + M, M)).astype(np.float32)   # exact ties
+        cost[L:] = 10000.0
+        cost[L + np.arange(M), np.arange(M)] = 2.0
+        got = native.jv_assign(cost)
+        if not np.array_equal(got, assignment.hungarian(torch.from_numpy(cost)).numpy()):
+            raise AssertionError("native JV: tied table assigned unlike assignment.hungarian")
+        n_scipy_differs += not np.array_equal(got, assignment._scipy_solve(cost))
+    streams, _meta = logs.load_log(SAMPLE_LOG)
+    cfg = dataclasses.replace(EKFSlamConfig(), max_landmarks=64, max_obs=8, mhl_dist_mbes=1.0,
+                              q_mbes_diag=(0.1,) * 3, r_diag=(1e-3,) * 6)   # run.py replay's
+
+    def log_timeline():
+        return logs.log_to_timeline(streams, freq_hz=cfg.system_freq, channels=("odom",),
+                                    events={"mbes": cfg.max_obs})
+
+    tl_np = log_timeline()
+    bin_events = native.bin_events
+    native.bin_events = lambda *a: None        # the Python binner
+    try:
+        tl_py = log_timeline()
+    finally:
+        native.bin_events = bin_events
+    for f in ("value", "mask"):
+        if not bitwise(torch.from_numpy(getattr(tl_np.events["mbes"], f)),
+                       torch.from_numpy(getattr(tl_py.events["mbes"], f))):
+            raise AssertionError(f"native binner: mbes {f} differs from the Python binner's")
+    n_det = int(tl_np.events["mbes"].mask.sum())
+    print(f"20a native: JV at scipy's optimum on 50 random tables, equal to "
+          f"assignment.hungarian on 50 tied tables ({n_scipy_differs} where scipy breaks a tie "
+          f"another way); binner bitwise the Python loop on the sample log's {n_det} MBES "
+          f"detections", flush=True)
+
+    # --- 20b. run.py replay on the sample log ------------------------------------
+    T = tl_np.num_ticks
+    burst = tl_np.events["mbes"].mask.any(-1)
+    n_burst = int(burst.sum())
+    launches = {}
+    reset()
+    rep = quiet(run.main, ["replay", "--log", SAMPLE_LOG, "--out", os.path.join(tmp, "replay")])
+    launches["cli-replay"] = counts()
+    if (launches["cli-replay"]["sequential_update"] != n_burst
+            or launches["cli-replay"]["symmetric_downdate"] != n_burst):
+        raise AssertionError(f"cli replay: launches {launches['cli-replay']}, expected K3 and "
+                             f"K12 {n_burst} (the log's ticks with an MBES burst)")
+    if rep["ticks"] != T or not np.isfinite(rep["rmse_pos"]):
+        raise AssertionError(f"cli replay: report {rep}")
+    # card against CPU: the card's ekf_slam.run over the whole log (also
+    # 20e's yardstick); the CPU's CLI and ekf_slam.run over its first 30 s,
+    # held against the card run's first ticks (the replay is causal) and
+    # the report the CLI makes of them
+    n_cpu = int(round(CLI_CPU_S * cfg.system_freq)) + 1
+    params = S.make_params(cfg, device=dev)
+    tl = tl_np.to(dev)
+    run_final, run_out = S.run(tl, params, cfg)
+    cut = cut_log(os.path.join(tmp, "cut.npz"), CLI_CPU_S)
+    rep_p = quiet(run.main, ["replay", "--log", cut, "--out", os.path.join(tmp, "rp"),
+                             "--device", "cpu"])
+    gt_s = streams["gt"]["stamps"] - min(s["stamps"][0] for s in streams.values())
+    ticks = np.asarray(tl_np.ticks[:n_cpu], np.float64)
+    gt = streams["gt"]["values"][np.clip(np.searchsorted(gt_s, ticks, side="right") - 1, 0,
+                                         len(gt_s) - 1)][:, :6]
+    rep_c = observability.run_report(run_out["mu"][:n_cpu], gt, device=dev)
+    rep_c["n_landmarks_mapped"] = int(run_out["n_active"][n_cpu - 1])
+    if rep_c["n_landmarks_mapped"] != rep_p["n_landmarks_mapped"] or rep_p["ticks"] != n_cpu:
+        raise AssertionError(f"cli replay {CLI_CPU_S:g} s: {rep_c['n_landmarks_mapped']} "
+                             f"landmarks on the card, {rep_p['n_landmarks_mapped']} on the CPU")
+    close_reports(rep_c, rep_p, ("final_error", "mean_error", "rmse_pos", "max_error"),
+                  f"cli replay {CLI_CPU_S:g} s")
+    cpu_final, cpu_out = S.run(tl_np.map(lambda x: x[:n_cpu]).to("cpu"),
+                               S.make_params(cfg, device="cpu"), cfg)
+    if not torch.equal(run_out["matched_mbes"][:n_cpu].cpu(), cpu_out["matched_mbes"]):
+        raise AssertionError("ekf_slam.run on the log: matched_mbes differs card vs CPU")
+    pose_err = float((run_out["mu"][:n_cpu].cpu() - cpu_out["mu"]).abs().max())
+    if not pose_err <= POSE_TOL:
+        raise AssertionError(f"ekf_slam.run on the log: poses differ by {pose_err:.3e}")
+    print(f"20b cli replay {SAMPLE_LOG} (T={T}, L={cfg.max_landmarks}, M={cfg.max_obs}): wall_s "
+          f"{rep['wall_s']}, realtime_factor {rep['realtime_factor']}, "
+          f"{rep['n_landmarks_mapped']} landmarks, rmse_pos {rep['rmse_pos']:.4f} m; K3 and K12 "
+          f"once per burst tick ({n_burst}); first {CLI_CPU_S:g} s card vs CPU: "
+          f"{rep_c['n_landmarks_mapped']} landmarks both, final_error {rep_c['final_error']:.6f} "
+          f"/ {rep_p['final_error']:.6f}; ekf_slam.run matched_mbes equal, max pose err "
+          f"{pose_err:.3e}", flush=True)
+
+    # --- 20c. run.py demo ------------------------------------------------------------
+    reset()
+    demo = quiet(run.main, ["demo", "--duration", "60", "--out", os.path.join(tmp, "demo")])
+    launches["cli-demo"] = counts()
+    if launches["cli-demo"]["sequential_update"] < 1:
+        raise AssertionError(f"cli demo: K3 was not launched: {launches['cli-demo']}")
+    d_c = quiet(run.main, ["demo", "--duration", f"{CLI_CPU_S:g}", "--out",
+                           os.path.join(tmp, "dc")])
+    d_p = quiet(run.main, ["demo", "--duration", f"{CLI_CPU_S:g}", "--out",
+                           os.path.join(tmp, "dp"), "--device", "cpu"])
+    if d_c["report"]["n_landmarks_mapped"] != d_p["report"]["n_landmarks_mapped"]:
+        raise AssertionError("cli demo: n_landmarks_mapped differs card vs CPU")
+    for name in d_c["stats"]:
+        close_reports(d_c["stats"][name], d_p["stats"][name], ("final_error", "mean_error"),
+                      f"cli demo {CLI_CPU_S:g} s {name}")
+    close_reports(d_c["report"], d_p["report"], ("final_error", "mean_error"),
+                  f"cli demo {CLI_CPU_S:g} s report")
+    r = demo["report"]
+    print(f"20c cli demo 60 s: dr_wall_s {r['dr_wall_s']:.6f}, slam_wall_s {r['slam_wall_s']:.4f}, "
+          f"slam_realtime_factor {r['slam_realtime_factor']:.3f}, {r['n_landmarks_mapped']} "
+          f"landmarks, mean_error {r['mean_error']:.4f} m; K3 {launches['cli-demo']} launches; "
+          f"{CLI_CPU_S:g} s card vs CPU: {d_c['report']['n_landmarks_mapped']} landmarks both, "
+          f"final_error {d_c['report']['final_error']:.6f} / {d_p['report']['final_error']:.6f}",
+          flush=True)
+
+    # --- 20d. run.py pf --pallas at 2^20 particles ---------------------------------
+    m = sim.simulate(sim.MissionSpec(duration_s=60.0, gps_surface_z=-100.0, gps_std=0.3,
+                                     dvl_std=0.02, seed=0))    # run.py pf's mission
+    tlp = PF.pf_timeline(m)
+    upd = tlp.channels["gps"].fresh & (tlp.channels["diving"].value[:, 0] < 0.5)
+    n_upd, n_seg = int(upd.sum()), len(PF._segment_plan(upd, 12))
+    reset()
+    pf = quiet(run.main, ["pf", "--particles", str(PF_N), "--pallas"])
+    launches["cli-pf"] = counts()
+    # the CLI replays twice (its warm-up, then the timed replay)
+    if (launches["cli-pf"]["predict_call_multi"] != 2 * n_seg
+            or launches["cli-pf"]["expand_gather_call"] != 2 * n_upd):
+        raise AssertionError(f"cli pf: launches {launches['cli-pf']}, expected K5 2 x {n_seg} "
+                             f"(segments) and K7 2 x {n_upd} (GPS updates)")
+    if not (np.isfinite(pf["xy_err_mean_m"]) and pf["xy_err_mean_m"] < PF_CLI_ERR_M):
+        raise AssertionError(f"cli pf: xy_err_mean_m {pf['xy_err_mean_m']} >= {PF_CLI_ERR_M}")
+    dense = quiet(run.main, ["pf", "--particles", str(PF_N)])
+    print(f"20d cli pf --particles {PF_N} --pallas (T={pf['ticks']}, {n_seg} segments, {n_upd} "
+          f"GPS updates): particle_updates_per_sec {pf['particle_updates_per_sec']}, "
+          f"realtime_factor {pf['realtime_factor']}, wall_s {pf['wall_s']}, xy_err_mean_m "
+          f"{pf['xy_err_mean_m']} (bound {PF_CLI_ERR_M}); the dense path (residual) at the same "
+          f"N: xy_err_mean_m {dense['xy_err_mean_m']}, wall_s {dense['wall_s']}, "
+          f"particle_updates_per_sec {dense['particle_updates_per_sec']}; K5 and K7 "
+          f"{launches['cli-pf']}", flush=True)
+
+    # --- 20e. the chunked SLAM replay --------------------------------------------------
+    def step(state, tick):
+        return S.step(cfg, params, state, tick)
+
+    ck = os.path.join(tmp, "ck")
+    reset()
+    (fin, out), ch_ms, _w = timed(lambda: replay.run_chunked(
+        step, S.init_state(cfg, device=dev), tl, chunk_size=CHUNK, ckpt_dir=ck,
+        ckpt_every_chunks=1))
+    launches["chunked-replay"] = counts()
+    if launches["chunked-replay"]["sequential_update"] != n_burst:
+        raise AssertionError(f"chunked replay: launches {launches['chunked-replay']}")
+    assert_bitwise(fin, run_final, "chunked replay final state")
+    assert_bitwise({k: torch.from_numpy(v) for k, v in out.items()},
+                   {k: v.cpu() for k, v in run_out.items()}, "chunked replay outputs")
+    mid_tick = CHUNK * (-(-T // CHUNK) - 2)     # the last checkpoint but one
+    mid = os.path.join(tmp, "mid")
+    os.makedirs(mid)
+    shutil.copy(os.path.join(ck, f"ckpt_{mid_tick}.npz"), mid)
+    fin2, tail = replay.run_chunked(step, S.init_state(cfg, device=dev), tl,
+                                    chunk_size=CHUNK, ckpt_dir=mid)
+    assert_bitwise(fin2, run_final, "resumed replay final state")
+    assert_bitwise({k: torch.from_numpy(v) for k, v in tail.items()},
+                   {k: v[mid_tick:].cpu() for k, v in run_out.items()}, "resumed replay tail")
+
+    def nan_step(state, tick):
+        state, o = step(state, tick)
+        return state._replace(mu=state.mu * float("nan")), o
+
+    try:
+        replay.run_chunked(nan_step, S.init_state(cfg, device=dev), tl.map(lambda x: x[:16]),
+                           chunk_size=8)
+        raise AssertionError("chunked replay: a NaN state raised no ReplayError")
+    except replay.ReplayError as e:
+        nan_msg = str(e)
+    first = int(np.flatnonzero(burst)[0])
+    short = tl.map(lambda x: x[:first + 8])
+    trace_dir = os.path.join(tmp, "trace")
+    replay.profile_replay(step, S.init_state(cfg, device=dev), short, trace_dir)
+    with open(os.path.join(trace_dir, "replay_trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    traced = {k: sum(1 for e in events if names(e.get("name", ""), k))
+              for k in ("phase1_kernel", "downdate_kernel")}
+    if not all(traced.values()):
+        raise AssertionError(f"profile_replay: the trace names no K3 kernel: {traced}")
+    print(f"20e chunked replay (chunk {CHUNK}, a checkpoint per chunk): {ch_ms:.1f} ms, final "
+          f"state and outputs bitwise ekf_slam.run on the card; resumed from ckpt_{mid_tick}: "
+          f"the tail bitwise; NaN guard: {nan_msg!r}; profile_replay trace of {first + 8} ticks: "
+          f"{traced}", flush=True)
+    shutil.rmtree(tmp)
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -2200,6 +2490,8 @@ def main():
     s12 = slice12_checks(dev)
     # --- 19. the SLAM + PF mission fleet at the headline's width -------------
     spf_launch, g_spf = slam_pf_replay(dev, cfg, params, tl, counters)
+    # --- 20. the mission CLI on the card ----------------------------------------
+    cli = cli_phase(dev)
 
     def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None, **extra):
         return dict(name=name, route="cuda", source=f"smarc_navigation_tpu_torch/csrc/{source}",
@@ -2250,7 +2542,9 @@ def main():
         entry("sequential_update", "slam_update.cu", "slam_kernels.py:213",
               launches["sequential_update"], k3_err, k3_ms, k3_plain_ms, k3_bound,
               phase1_ms=k3_t["phase1_kernel"], downdate_ms=k3_t["downdate_kernel"],
-              one_kernel_ms=k3_one_ms),
+              one_kernel_ms=k3_one_ms,
+              launches_by_path={p: cli[p]["sequential_update"]
+                                for p in ("cli-replay", "cli-demo", "chunked-replay")}),
         entry("sequential_update_marginal_fleet", "slam_marginal.cu", "slam_kernels.py:1124",
               l256["marginal"]["sequential_update_marginal_fleet"], k256["K4"]["err"],
               k256["K4"]["ms"], k256["K4"]["plain_ms"], k256["K4"]["bound"],
@@ -2260,7 +2554,9 @@ def main():
         entry(name, src, rep, cnt[name], pk[k]["err"], pk[k]["ms"], pk[k]["plain_ms"], pk[k]["bound"],
               pk[k].get("library_ms"), **{x: pk[k][x] for x in ("nticks_ms", "fit", "no_jitter",
                                                                  "by_weights", "kernel_ms")
-                                          if x in pk[k]})
+                                          if x in pk[k]},
+              **({"launches_by_path": {"cli-pf": cli["cli-pf"][name]}}
+                 if k in ("K5", "K7") else {}))
         for k, name, src, rep, cnt in (
             ("K5", "predict_call_multi", "pf_predict.cu", "pf_kernels.py:820", pf_launch),
             ("K6", "predict_call", "pf_predict.cu", "pf_kernels.py:865", pt_launch),
@@ -2289,7 +2585,9 @@ def main():
               launches_by_path={"slam-fleet128-L64": launches["symmetric_downdate"],
                                 "slam-fleet32-L256-full": l256["full"]["symmetric_downdate"],
                                 "raycast-fleet1024": rc_launch["symmetric_downdate"],
-                                "slam-pf-fleet128": spf_launch["symmetric_downdate"]}),
+                                "slam-pf-fleet128": spf_launch["symmetric_downdate"],
+                                **{p: cli[p]["symmetric_downdate"]
+                                   for p in ("cli-replay", "cli-demo", "chunked-replay")}}),
         # K9 at the loc-fleet64 replay's shape; K10 in the local wiring of
         # the ekf15-fleet64 replay (its dual replay launches it 2T times)
         entry("fleet_tick", "loc_tick.cu", "loc_kernels.py:326", fl_launch["loc64"],

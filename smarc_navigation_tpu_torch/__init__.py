@@ -21,19 +21,25 @@ sonar perception (``ops.sonar``, ``ops.raycast``), the closed-loop raycast
 fleet (``parallel.fleet.run_raycast_fleet``: K1, K2's phase 1 and K12,
 graphed) and the SLAM + PF mission fleet (``parallel.fleet.run_fleet``:
 K1 and K2 per tick, every particle bank stepped at once on its device,
-graphed).
+graphed). Slice 13 adds the host and IO layer and the mission CLI
+(``run.py``: ``demo``, ``pf``, ``replay``; the chunked replay with
+checkpoint/resume ``io.replay``; ``native.py``, the host C++ JV and binner).
 
 Layout (same paths as the reference):
-  utils/     geometry, linalg, graphs (the cached CUDA graphs of the tick loops)
+  run.py     the mission CLI (``python -m smarc_navigation_tpu_torch.run``)
+  native.py  the host C++ runtime (``csrc/smarcnav_native.cc``, built by g++)
+  utils/     geometry, linalg, geodesy, graphs (the cached CUDA graphs of the
+             tick loops)
   io/        numpy mission simulator, the SLAM, combined, localization,
-             15-state, dead-reckoning and raycast fleet workloads
+             15-state, dead-reckoning and raycast fleet workloads; logs,
+             replay, metrics, observability, map_server, uw_gps, bag_convert
   ops/       timeline, assignment, bezier, oned_kf, resampling, sonar,
              raycast, slam_da_kernels (K1, K11), slam_kernels (K2-K4, K12),
              pf_kernels (K5-K8), loc_kernels (K9), ekf15_kernels (K10)
   parallel/  fleet: batch_timelines, run_combined, the SLAM + PF fleet,
              run_raycast_fleet
   models/    ekf_slam, particle_filter, ekf_localization, ekf_15state,
-             motion_model, dead_reckoning
+             motion_model, dead_reckoning, sensors
 """
 
 import torch as _torch

@@ -10,10 +10,10 @@ result returned on the table's device. The fleet path never calls it — the
 DA kernel (``ops.slam_da_kernels``) runs its own JV on the card.
 
 ``hungarian_host`` is the reference's host solver (``solver="host"`` of
-``ekf_slam``): scipy's ``linear_sum_assignment`` on the table in float64.
-It finds the same optimum; where several assignments share it, it may pick
-another one than ``hungarian`` (the reference's host path tries its native
-JV first, which this package does not build yet).
+``ekf_slam``): the native C++ JV (``native.jv_assign``, the same algorithm
+and tie rule) on the table in float64 when the library builds, scipy's
+``linear_sum_assignment`` otherwise. scipy finds the same optimum; where
+several assignments share it, it may pick another one.
 """
 
 from __future__ import annotations
@@ -87,18 +87,35 @@ def hungarian(cost: torch.Tensor) -> torch.Tensor:
     return col_to_row.to(device)
 
 
+def _scipy_solve(cost: np.ndarray) -> np.ndarray:
+    from scipy.optimize import linear_sum_assignment
+
+    rows, cols = linear_sum_assignment(cost)
+    out = np.full(cost.shape[1], -1, np.int32)
+    out[cols] = rows.astype(np.int32)
+    return out
+
+
+def _host_solve(cost: np.ndarray) -> np.ndarray:
+    """Native C++ JV when built (the Munkres-solver slot of the reference),
+    scipy otherwise (``smarc_navigation_tpu/ops/assignment.py:130-139``).
+    The JV assigns every column, so it takes C <= R; a wider table goes to
+    scipy, which leaves the columns past the rows unassigned (the
+    reference's native path raises there)."""
+    from .. import native
+
+    if cost.shape[1] <= cost.shape[0] and native.available():
+        return native.jv_assign(cost)
+    return _scipy_solve(cost)
+
+
 def hungarian_host(cost: torch.Tensor) -> torch.Tensor:
-    """Exact min-cost assignment solved on the host by scipy in float64.
+    """Exact min-cost assignment solved on the host in float64.
 
     cost: (R, C). Returns col_to_row (C,) int32 on cost's device, -1 for a
     column left unassigned (only where C > R)."""
-    from scipy.optimize import linear_sum_assignment
-
     c = cost.detach().to("cpu", torch.float64).numpy()
-    rows, cols = linear_sum_assignment(c)
-    out = np.full(c.shape[1], -1, np.int32)
-    out[cols] = rows.astype(np.int32)
-    return torch.from_numpy(out).to(cost.device)
+    return torch.from_numpy(_host_solve(c)).to(cost.device)
 
 
 def assignment_cost(cost: torch.Tensor, col_to_row: torch.Tensor) -> torch.Tensor:

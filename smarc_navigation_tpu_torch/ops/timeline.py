@@ -212,14 +212,22 @@ def make_event_channel(
     Queue semantics: detections wait and are consumed by the next filter
     tick. Bursts landing on the same tick merge up to max_per_tick; extra
     detections are dropped, counted in ``stats["dropped"]`` and warned
-    about. (The reference may bin with its native library; it implements
-    this same loop, so the outputs are identical.)"""
+    about. Binned by the native library (``native.bin_events``) when it
+    builds, by the Python loop below otherwise: the same loop, the same
+    bits."""
     T = len(ticks)
     D = values.shape[1] if values.size else 3
     dropped = 0
     if len(stamps):
         order = np.argsort(stamps, kind="stable")
-        stamps, values = stamps[order], values[order]
+        stamps, values, burst_id = stamps[order], values[order], np.asarray(burst_id)[order]
+        from .. import native
+
+        binned = native.bin_events(stamps, values, burst_id, ticks, max_per_tick)
+        if binned is not None:
+            out_v, out_m, dropped = binned
+            _record_dropped(dropped, stats)
+            return EventChannel(value=out_v.astype(dtype), mask=np.ascontiguousarray(out_m))
     out = np.zeros((T, max_per_tick, D), dtype=dtype)
     mask = np.zeros((T, max_per_tick), dtype=bool)
     if len(stamps):

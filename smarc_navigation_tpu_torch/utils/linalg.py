@@ -1,7 +1,10 @@
 """Small-matrix linear algebra for the filters (port of the reference's
-``utils/linalg.py`` subset the port needs)."""
+``utils/linalg.py``): Cholesky-factored solves of the SPD innovation
+matrices, closed-form 2×2 / 3×3 inverses."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -11,13 +14,43 @@ def symmetrize(a: torch.Tensor) -> torch.Tensor:
     return 0.5 * (a + torch.swapaxes(a, -1, -2))
 
 
-def spd_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def spd_solve(S: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Solve S x = b for SPD S (..., n, n) against b (..., n) or (..., n, k):
-    a Cholesky solve of ``symmetrize(S)``."""
+    a Cholesky solve of ``symmetrize(S)`` (plus ``jitter`` on the diagonal)."""
+    if jitter:
+        S = S + jitter * torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
     chol = torch.linalg.cholesky(symmetrize(S))
     if b.dim() == S.dim() - 1:
         return torch.cholesky_solve(b[..., None], chol)[..., 0]
     return torch.cholesky_solve(b, chol)
+
+
+def spd_inverse(S: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """Explicit SPD inverse via Cholesky (where the reference stores S⁻¹,
+    ``correspondence_obj.cpp:80-97``)."""
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    return spd_solve(S, eye.expand(S.shape), jitter)
+
+
+def mahalanobis(nu: torch.Tensor, S: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
+    """νᵀ S⁻¹ ν for ν (..., n), SPD S (..., n, n) -> (...,)."""
+    return torch.sum(nu * spd_solve(S, nu, jitter), dim=-1)
+
+
+def gaussian_likelihood(nu: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """ψ = det(π S)^{-1/2} exp(-d_M/2), with the reference's normalization
+    ``2 * M_PI_2 * S`` = π·S (``correspondence_obj.cpp:80-97``)."""
+    chol = torch.linalg.cholesky(symmetrize(S))
+    d_m = mahalanobis(nu, S)
+    n = S.shape[-1]
+    log_det = n * math.log(math.pi) + 2.0 * torch.sum(
+        torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
+    return torch.exp(-0.5 * (d_m + log_det))
+
+
+def quadratic_form(H: torch.Tensor, Sigma: torch.Tensor) -> torch.Tensor:
+    """H Σ Hᵀ over trailing dims; H (..., m, n), Σ (..., n, n) -> (..., m, m)."""
+    return torch.einsum("...ij,...jk,...lk->...il", H, Sigma, H)
 
 
 def inv_det_small3(S: torch.Tensor):
@@ -71,7 +104,7 @@ def inv_small(S: torch.Tensor) -> torch.Tensor:
             [torch.stack([A, D, G], -1), torch.stack([B, E, Hc], -1),
              torch.stack([C, F, I], -1)], -2)
         return inv / det[..., None, None]
-    raise ValueError(f"inv_small handles 2x2 and 3x3 only, got {n}x{n}")
+    return spd_inverse(S)
 
 
 def chi2_quantile(p: float, dof: int) -> float:

@@ -4,9 +4,13 @@ path, the combined mission, the EKF-localization fleet, the 15-state
 dual-EKF fleet, dead reckoning, sonar, the raycast fleet and the SLAM + PF
 fleet, at a tiny size on the CPU), and its numpy host code (simulator,
 timeline construction, fleet batching, the PF, combined, localization,
-15-state, dead-reckoning and raycast workloads) produces arrays bitwise
-equal to the reference package's (the 15-state timeline's attitude and control columns,
-computed in float32 by each framework, to 1e-6)."""
+15-state, dead-reckoning and raycast workloads; recorded logs, geodesy's
+host path, the sensor glue, observability's numpy, the aux-DR track)
+produces arrays bitwise equal to the reference package's (the 15-state
+timeline's attitude and control columns, computed in float32 by each
+framework, to 1e-6). The host and IO layer and the mission CLI run with
+JAX blocked too, and the native runtime's C++ source is the reference's,
+byte for byte."""
 
 import dataclasses
 import os
@@ -92,6 +96,50 @@ print("ran", out["mu"].shape[0], "ticks; n_active", final.n_active.tolist())
 """
 
 
+_NO_JAX_CLI = r"""
+import sys
+for name in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"):
+    sys.modules[name] = None          # any import of these now raises
+import os, shutil, tempfile
+import numpy as np
+from smarc_navigation_tpu_torch import native, run
+from smarc_navigation_tpu_torch.io import (bag_convert, logs, map_server, metrics,
+                                           observability, replay, uw_gps)
+from smarc_navigation_tpu_torch.models import sensors
+from smarc_navigation_tpu_torch.utils import geodesy, geometry, linalg
+streams, meta = logs.load_log("data/sample_mission.npz")
+base = min(s["stamps"][0] for s in streams.values())
+cut = {n: {k: v[s["stamps"] < base + 5.0 + 1e-9] for k, v in s.items()}
+       for n, s in streams.items()}
+tmp = tempfile.mkdtemp()
+logs.save_log(os.path.join(tmp, "cut.npz"), cut, meta=meta)
+rep = run.main(["replay", "--log", os.path.join(tmp, "cut.npz"), "--out", tmp, "--device", "cpu"])
+shutil.rmtree(tmp)
+assert rep["ticks"] == 51 and np.isfinite(rep["rmse_pos"]), rep
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and
+                m.split(".")[0] in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"))
+assert not loaded, loaded
+print("replayed", rep["ticks"], "ticks")
+"""
+
+
+def test_host_layer_and_cli_run_with_jax_blocked():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_CLI], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "replayed 51 ticks" in proc.stdout
+
+
+def test_native_source_is_the_reference_copy():
+    with open(os.path.join(REPO, "native", "smarcnav_native.cc"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "smarc_navigation_tpu_torch", "csrc", "smarcnav_native.cc"),
+              "rb") as f:
+        assert f.read() == want
+
+
 def test_port_runs_with_jax_blocked():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -144,6 +192,47 @@ def test_host_code_bitwise_equal_to_reference(seed):
     for a, b in zip(workloads.combined_workload(cfg, 12.0, pf_seed=seed),
                     jworkloads.combined_workload(cfg, 12.0, pf_seed=seed)):
         _assert_bitwise(_flat(a), _flat(b))
+
+    # the host and IO layer's numpy: the mission as a recorded log and its
+    # timeline, observability's series, geodesy's host path, the sensor
+    # glue and the aux-DR track on the mission's own fixes
+    from smarc_navigation_tpu.io import logs as jlogs
+    from smarc_navigation_tpu.io import observability as jobs
+    from smarc_navigation_tpu.io import uw_gps as juw
+    from smarc_navigation_tpu.models import sensors as jsensors
+    from smarc_navigation_tpu.utils import geodesy as jgeodesy
+    from smarc_navigation_tpu_torch.io import logs, observability, uw_gps
+    from smarc_navigation_tpu_torch.models import sensors
+    from smarc_navigation_tpu_torch.utils import geodesy
+
+    streams, jstreams = logs.mission_to_log(m), jlogs.mission_to_log(jm)
+    assert streams.keys() == jstreams.keys()
+    for name in streams:
+        for k in streams[name]:
+            assert np.array_equal(streams[name][k], jstreams[name][k]), (name, k)
+    kw = dict(freq_hz=10.0, channels=("imu", "gps"), windows={"dvl": 5},
+              events={"mbes_detections": 8})
+    _assert_bitwise(_flat(logs.log_to_timeline(streams, **kw)),
+                    _flat(jlogs.log_to_timeline(jstreams, **kw)))
+    gt = m.gt_at(ticks)
+    for a, b in ((observability.tf_listener_scalars(ticks, gt),
+                  jobs.tf_listener_scalars(ticks, gt)),
+                 (observability.error_dashboard(ticks, {"gt": gt + 0.1}, gt),
+                  jobs.error_dashboard(ticks, {"gt": gt + 0.1}, gt))):
+        assert a.keys() == b.keys()
+        assert all(np.array_equal(a[k], b[k]) for k in a)
+    lat, lon = geodesy.utm_to_latlon(333411.0 + gt[:, 0], 6582690.0 + gt[:, 1], 34, xp=np)
+    jlat, jlon = jgeodesy.utm_to_latlon(333411.0 + gt[:, 0], 6582690.0 + gt[:, 1], 34, xp=np)
+    assert np.array_equal(lat, jlat) and np.array_equal(lon, jlon)
+    odo, jodo = (sensors.gps_to_utm_odometry(lat, lon, 34),
+                 jsensors.gps_to_utm_odometry(lat, lon, 34))
+    assert np.array_equal(odo.easting, jodo.easting)
+    assert np.array_equal(odo.northing, jodo.northing)
+    fixes = np.stack([odo.easting, odo.northing], -1)
+    q = m.streams["imu"]["values"][0, 0:4]
+    got = uw_gps.aux_dr_track(ticks, fixes, q, device="cpu")
+    want = juw.aux_dr_track(ticks, fixes, q)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
 
 
 def test_filter_fleet_builders_match_reference():
