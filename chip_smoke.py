@@ -4,7 +4,8 @@ fleet replay at the headline shape (L=64) and at the reference-tuned L=256
 shape in both covariance semantics, the 2^20-particle PF replay, the
 combined PF + SLAM mission, the EKF-localization fleet, the 15-state
 dual-EKF fleet and the closed-loop raycast fleet at B=1024; dead reckoning
-and the SLAM + PF mission fleet against their CPU runs.
+and the SLAM + PF mission fleet against their CPU runs; the mission CLI;
+the multi-device layer with four shards on the one card.
 
     python3 chip_smoke.py
 
@@ -155,6 +156,27 @@ Phases (any failure exits nonzero; nothing is caught):
      the card (final state and outputs), a resume from the last checkpoint
      but one bitwise the tail, a NaN-injecting step raising
      ``ReplayError``, and ``profile_replay``'s trace naming K3's kernels.
+ 21. the multi-device layer (``parallel/mesh.py``, a grid of devices driven
+     from this process), every mesh's shards on the one card: (a) K7's
+     window form (``expand_gather_window_call``) at a shard's shape of the
+     2^20 bank split four ways (n_out = 2^18, n_in = 2^18 + 2·4096), on
+     healthy, degenerate and zero-run counts, for a left-edge, an interior
+     and a right-edge shard, exactly equal to its plain version and to the
+     whole-bank K7's columns; the whole-bank K7 bitwise the window form at
+     out_off 0; K5 and K6 at 2^18 with idx_off = s·2^18, four shards side
+     by side bitwise the 2^20 call; K8 at a shard's shape; (b)
+     ``run_fast_segmented(pmesh=make_mesh(particle=4))`` on pf-1M-60s
+     bitwise the unsharded replay (bank, mean, cov), K5, the window form
+     and K8 four times per segment / GPS update, timed beside the unsharded
+     replay (medians of three), and a forced exact-branch resample bitwise
+     the unsharded gather; (c) ``ekf_slam.run_fleet(device_mesh=
+     make_mesh(mission=4))`` at the headline (T=601, each mission shard
+     graphed), (d) ``fleet.run_fleet`` over make_mesh(mission=2,
+     particle=2) at slam-pf-fleet128's width (T=51, systematic) and
+     ``run_raycast_fleet(device_mesh=make_mesh(mission=4))`` at B=1024
+     (T=76), each bitwise its unsharded run, with K1, K2 (phase 1) and K12
+     once per tick and mission shard. One card measures no scaling: these
+     times are what four shards cost on one card.
 Phases 5, 5b, 5c, 14, 15, 17 and 19 run each replay's tick loop as a cached
 CUDA graph (``utils/graphs.py``), its default on the card. Before each of
 those nine replays is timed, its eager loop (``graph=False``) runs on the same
@@ -183,11 +205,11 @@ chunked replay, K5's and K7's on the CLI's pf;
 ``library_ms`` (K7's ``torch.repeat_interleave``, K12's ``torch.baddbmm``) is the device time of all
 the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
-5c, 9, 9b, 10, 14, 15, 17 and 19) and read just after it (phase 5's after phase 6). K8 has
-no caller on the single-device path (its TPU callers are the
-particle-sharded update and the TPU's exact-fallback branch) and K11 none
-on any path (the reference calls it from tests only; its JV core runs
-inside K1), so their counts are 0. ``bound_ms`` is the largest of the bytes
+5c, 9, 9b, 10, 14, 15, 17, 19 and 21b-d) and read just after it (phase 5's after
+phase 6). K8 and K7's window form take their launches from the
+particle-sharded PF replay (21b), their only caller; K11 has none on any
+path (the reference calls it from tests only; its JV core runs inside
+K1), so its count is 0. ``bound_ms`` is the largest of the bytes
 each kernel must move (inputs read once, outputs written once) over
 3.35 TB/s, its float operations over 67 TFLOP/s (H100 SXM data sheet) and
 the PF generator's integer operations by pipe: shifts, xors and adds over
@@ -2236,6 +2258,276 @@ def cli_phase(dev):
     return launches
 
 
+MESH_P = 4          # phase 21: shards of each mesh, all on the one card
+MESH_H = 4096       # the distributed resample's halo (its default)
+MESH_RC_T = 76      # phase 21: ticks of the mission-sharded raycast fleet (bench.py's short T)
+MESH_SPF_T = 51     # phase 21: ticks of the (mission, particle)-sharded SLAM + PF fleet
+
+
+def window_case(m_cum, bank, s, ns, H):
+    """Shard s's halo-extended window of global counts and bank columns, as
+    ``resample_dist.systematic_gather_shard`` builds it: H columns from each
+    neighbour, zeros off the left edge, counts n off the right one."""
+    import torch
+
+    n = m_cum.shape[0]
+    lo, hi = s * ns, (s + 1) * ns
+    m_left = m_cum[lo - H:lo] if s else torch.zeros(H, dtype=m_cum.dtype, device=m_cum.device)
+    m_right = m_cum[hi:hi + H] if hi < n else torch.full((H,), n, dtype=m_cum.dtype,
+                                                        device=m_cum.device)
+    p_left = bank[:, lo - H:lo] if s else torch.zeros_like(bank[:, :H])
+    p_right = bank[:, hi:hi + H] if hi < n else torch.zeros_like(bank[:, :H])
+    return (torch.cat([m_left, m_cum[lo:hi], m_right]).contiguous(),
+            torch.cat([p_left, bank[:, lo:hi], p_right], 1).contiguous())
+
+
+def mesh_kernels_phase(dev, tl_pf):
+    """Phase 21a: K7's window form against its plain version at a shard's
+    shape (n_out = 2^18, n_in = 2^18 + 2·4096) on healthy, degenerate and
+    zero-run counts of a 2^20 bank, for a left-edge, an interior and a
+    right-edge shard, exactly, and against the whole-bank K7's slice; the
+    whole-bank K7 bitwise the window form at out_off 0; K5 and K6 at 2^18
+    with idx_off = s·2^18: four shards side by side bitwise the 2^20 call.
+    Times the window form and K8 at the shard's shape."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import resampling as RS
+
+    n, P_, H = PF_N, MESH_P, MESH_H
+    ns = n // P_
+    params = PF.make_params(PFConfig(particle_count=n), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bank = PF.init_state(n, params, gen).particles
+    pre = PF._tick_precompute(tl_pf, params, gen)
+    nxy, nyaw = PF._noise_flags(params)
+    t_up = int(pre.do_update.nonzero()[0])
+    gps, u = pre.gps_xy[t_up], pre.res_u[t_up]
+    weights = {"healthy": RS.normalize_weights_det(PF._fast_logw(bank, gps, params))}
+    weights["degenerate"] = torch.zeros(n, device=dev)
+    weights["degenerate"][777] = 1.0
+    zr = torch.zeros(n, device=dev)
+    zr[:64] = zr[-64:] = 1.0 / 128
+    weights["zero-run"] = zr
+    checked = 0
+    for name, w in weights.items():
+        m_cum = RS.systematic_counts(w, u)
+        whole = PK.expand_gather_call(m_cum, bank)
+        if not bitwise(PK.expand_gather_window_call(m_cum, bank, 0, n), whole):
+            raise AssertionError(f"K7 ({name}): the whole bank differs from the window form at 0")
+        for s in (0, 1, P_ - 1):
+            m_ext, p_ext = window_case(m_cum, bank, s, ns, H)
+            got = PK.expand_gather_window_call(m_ext, p_ext, s * ns, ns)
+            torch.cuda.synchronize()
+            want = PK.expand_gather_window_call_reference(m_ext, p_ext, s * ns, ns)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K7 window ({name}, shard {s}): differs from the plain version")
+            if name == "healthy" and not torch.equal(got, whole[:, s * ns:(s + 1) * ns]):
+                raise AssertionError(f"K7 window (shard {s}): not the whole-bank K7's columns")
+            checked += 1
+        if name == "healthy":
+            m_h = m_cum
+    # the timed case: an interior shard on healthy weights
+    m_ext, p_ext = window_case(m_h, bank, 1, ns, H)
+
+    def k7w():
+        return PK.expand_gather_window_call(m_ext, p_ext, ns, ns)
+
+    t7 = path_ms(k7w, 30, ("gather_kernel", "FillFunctor"))
+    win = dict(err=0.0, ms=sum(t7.values()), kernel_ms=t7["gather_kernel"], wall_ms=wall_ms(k7w, 50),
+               plain_ms=wall_ms(lambda: PK.expand_gather_window_call_reference(
+                   m_ext, p_ext, ns, ns), 10),
+               bound=bound(nbytes(m_ext, p_ext, k7w()), 0), shape=[6, int(m_ext.shape[0]), ns])
+    # K5 / K6 with the particle offset: shards side by side are the whole call
+    par16, seeds = pre.par16[0:10].contiguous(), pre.seeds[0:10].contiguous()
+    for what, call in (
+            ("K5", lambda p, off: PK.predict_call_multi(p, par16, seeds, nxy, nyaw, idx_off=off)),
+            ("K6", lambda p, off: PK.predict_call(p, par16[0], seeds[0], nxy, nyaw, idx_off=off))):
+        full = call(bank, 0)
+        parts = [call(bank[:, s * ns:(s + 1) * ns].contiguous(), s * ns) for s in range(P_)]
+        torch.cuda.synchronize()
+        if not (bitwise(torch.cat([p[0] for p in parts], 1), full[0])
+                and bitwise(torch.cat([p[1] for p in parts], -1), full[1])):
+            raise AssertionError(f"{what}: {P_} shards with idx_off differ from the 2^20 call")
+    # K8 at a shard's shape with its seed offset
+    shard = PK.expand_gather_call(m_h, bank)[:, ns:2 * ns].contiguous()
+    sd = torch.sqrt(params.res_noise_cov)
+    jsd = torch.stack([sd[0], sd[1], sd[5]]).contiguous()
+    seed = pre.noise_seeds[t_up]
+
+    def k8():
+        return PK.jitter_moments_call(shard, jsd, seed, seed_off=ns)
+
+    got8 = k8()
+    r8 = PK.jitter_moments_call_reference(shard, jsd, seed, seed_off=ns)
+    e8 = max(check(bank_err(got8[0], r8[0]), "K8 at a shard"), check(max_err(got8[1], r8[1]),
+                                                                       "K8 sums at a shard"))
+    k8s = dict(err=e8, ms=device_ms(k8, 30, "jitter_kernel"), shape=[6, ns],
+               bound=bound(nbytes(shard, jsd, *got8), ns * PF_JITTER_FLOPS,
+                           pf_int_ops(ns, True, True)))
+    print(f"phase 21a: K7 window form n_out={ns} n_in={win['shape'][1]}: {checked} cases "
+          f"(healthy, degenerate, zero-run x left, interior, right shard) equal to the plain "
+          f"version; whole-bank K7 == window form at out_off 0; {win['ms'] * 1e3:.2f} us device "
+          f"per call (kernel {win['kernel_ms'] * 1e3:.2f}), plain {win['plain_ms']:.4f} ms, bound "
+          f"{win['bound'][0] * 1e3:.2f} us ({win['bound'][1]}); K5 and K6 with idx_off: "
+          f"{P_} shards == the {n} call bitwise; K8 at a shard {k8s['ms'] * 1e3:.2f} us (bound "
+          f"{k8s['bound'][0] * 1e3:.2f} us), max err {e8:.3e}", flush=True)
+    return win, k8s
+
+
+def mesh_pf_phase(dev, tl_pf):
+    """Phase 21b: ``run_fast_segmented`` with ``pmesh=make_mesh(particle=4,
+    devices=[cuda] * 4)`` on pf-1M-60s (N = 2^20), bitwise the unsharded
+    replay (bank, mean, cov), K5 / K7's window form / K8 4 x segments /
+    updates / updates times; both timed (median of three, CUDA events);
+    one forced exact-branch resample (a degenerate weight vector) bitwise
+    the unsharded gather."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import resampling as RS
+    from smarc_navigation_tpu_torch.parallel import mesh, resample_dist
+
+    n, P_ = PF_N, MESH_P
+    cfg = PFConfig(particle_count=n)
+    params = PF.make_params(cfg, device=dev)
+    pm = mesh.make_mesh(particle=P_, devices=[dev] * P_)
+    upd = (tl_pf.channels["gps"].fresh & (tl_pf.channels["diving"].value[:, 0] < 0.5)).cpu().numpy()
+    n_upd, n_seg = int(upd.sum()), len(PF._segment_plan(upd, 12))
+
+    def run(pmesh):
+        return PF.run_fast_segmented(tl_pf, params, cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), pmesh=pmesh)
+
+    run(pm)                                                      # warm-up
+    run(None)
+    counters = [PK.predict_call_multi, PK.expand_gather_window_call, PK.jitter_moments_call,
+                PK.expand_gather_call]
+    for f in counters:
+        f.launches = 0
+    resample_dist.exact_fallbacks = 0
+    (fin1, out1), ms1, wall1 = timed(lambda: run(pm))
+    launches = {f.__name__: f.launches for f in counters}
+    fallbacks = resample_dist.exact_fallbacks
+    want = dict(predict_call_multi=P_ * n_seg, expand_gather_window_call=P_ * n_upd,
+                jitter_moments_call=P_ * n_upd, expand_gather_call=0)
+    if launches != want:
+        raise AssertionError(f"sharded PF: launches {launches}, expected {want}")
+    (fin0, out0), ms0, wall0 = timed(lambda: run(None))
+    for name, a, b in (("bank", fin1.particles, fin0.particles), ("mean", out1["mean"], out0["mean"]),
+                       ("cov", out1["cov"], out0["cov"])):
+        if not bitwise(a, b):
+            raise AssertionError(f"sharded PF: {name} differs from the unsharded replay")
+    reps1, reps0 = [ms1], [ms0]
+    for _ in range(2):                                           # in turns
+        reps1.append(timed(lambda: run(pm))[1])
+        reps0.append(timed(lambda: run(None))[1])
+    # one forced exact-branch resample: every slot takes particle 777
+    bank = fin0.particles
+    w = torch.zeros(n, device=dev)
+    w[777] = 1.0
+    before = resample_dist.exact_fallbacks
+    got = resample_dist.systematic_resample_gather_dist(bank, w, 0.5, pm)
+    if resample_dist.exact_fallbacks != before + 1:
+        raise AssertionError("degenerate weights did not take the exact branch")
+    if not bitwise(got, PK.expand_gather_call(RS.systematic_counts(w, 0.5), bank)):
+        raise AssertionError("exact branch: differs from the unsharded gather")
+    T = tl_pf.num_ticks
+    res = dict(ms=statistics.median(reps1), replays_ms=reps1, unsharded_ms=statistics.median(reps0),
+               unsharded_replays_ms=reps0, launches=launches, exact_fallbacks=fallbacks)
+    print(f"phase 21b: run_fast_segmented N={n} T={T} ({n_seg} segments, {n_upd} GPS updates) "
+          f"over {P_} particle shards on one card: {res['ms']:.2f} ms (median of "
+          + ", ".join(f"{r:.2f}" for r in reps1) + f"; the first {wall1:.3f} s host) against "
+          f"{res['unsharded_ms']:.2f} ms unsharded (" + ", ".join(f"{r:.2f}" for r in reps0)
+          + f"); bank, mean and cov bitwise the unsharded replay's; launches {launches}; exact "
+          f"branches {fallbacks} in the replay, 1 forced (degenerate weights), bitwise the "
+          f"unsharded gather", flush=True)
+    return res
+
+
+def mesh_fleets_phase(dev, cfg, params, tl, counters):
+    """Phase 21c-d: the mission-sharded fleets on one card, each bitwise
+    its unsharded run: ``ekf_slam.run_fleet(device_mesh=make_mesh(
+    mission=4))`` at the headline (B=128, L=64, M=8, T=601, graphed per
+    mission shard), the SLAM + PF fleet over ``make_mesh(mission=2,
+    particle=2)`` at slam-pf-fleet128's width (T cut to MESH_SPF_T, the
+    systematic scheme) and ``run_raycast_fleet(device_mesh=make_mesh(
+    mission=4))`` at B=1024 (T cut to MESH_RC_T)."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import PFConfig
+    from smarc_navigation_tpu_torch.io.workloads import raycast_fleet_inputs
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.parallel import fleet as FL
+    from smarc_navigation_tpu_torch.parallel import mesh
+
+    def mission_mesh(m, p=1):
+        return mesh.make_mesh(mission=m, particle=p, devices=[dev] * (m * p))
+
+    def sharded(what, run_sh, run_un, T, launches):
+        run_sh()                    # warm-up: each graph key's first call (eager, capture)
+        run_un()
+        for f in counters:
+            f.launches = 0
+        got, ms_sh, _ = timed(run_sh)
+        n = {f.__name__: f.launches for f in counters}
+        for k in ("da_lanes", "sequential_update_fleet", "symmetric_downdate"):
+            if n[k] != launches:
+                raise AssertionError(f"{what}: launches {n}, expected {launches} of {k}")
+        want, ms_un, _ = timed(run_un)
+        assert_bitwise(got, want, what)
+        print(f"phase 21 {what}: bitwise the unsharded run; {ms_sh:.1f} ms sharded against "
+              f"{ms_un:.1f} ms unsharded ({ms_sh * 1e3 / T:.1f} / {ms_un * 1e3 / T:.1f} us per "
+              f"fleet tick); launches {n}", flush=True)
+        return dict(ms=ms_sh, unsharded_ms=ms_un, launches=n)
+
+    res = {}
+    B, T = tl.ticks.shape
+    res["slam"] = sharded(f"ekf_slam.run_fleet B={B} T={T} over mission=4",
+                          lambda: S.run_fleet(tl, params, cfg, device_mesh=mission_mesh(4)),
+                          lambda: S.run_fleet(tl, params, cfg), T, 4 * T)
+    tls = tl.map(lambda x: x[:, :MESH_SPF_T])
+    pcfg = PFConfig(particle_count=SPF_N)
+    pp = PF.make_params(pcfg, device=dev)
+    res["slam_pf"] = sharded(
+        f"fleet.run_fleet B={B} T={MESH_SPF_T} N={SPF_N} over mission=2 x particle=2",
+        lambda: FL.run_fleet(tls, cfg, params, pcfg, pp, SPF_N, device_mesh=mission_mesh(2, 2),
+                             seed=4),
+        lambda: FL.run_fleet(tls, cfg, params, pcfg, pp, SPF_N, seed=4, pf_scheme="systematic"),
+        MESH_SPF_T, 2 * MESH_SPF_T)
+    rcfg, spec, gt, lms, lmm = raycast_fleet_inputs(RC_B, MESH_RC_T)
+    gt, lms, lmm = (torch.as_tensor(x, device=dev) for x in (gt, lms, lmm))
+    rp = S.make_params(rcfg, device=dev)
+    res["raycast"] = sharded(
+        f"run_raycast_fleet B={RC_B} T={MESH_RC_T} over mission=4",
+        lambda: FL.run_raycast_fleet(gt, lms, lmm, rcfg, rp, spec, device_mesh=mission_mesh(4),
+                                     use_da_kernel=True),
+        lambda: FL.run_raycast_fleet(gt, lms, lmm, rcfg, rp, spec, use_da_kernel=True),
+        MESH_RC_T, 4 * MESH_RC_T)
+    return res
+
+
+def mesh_phase(dev, cfg, params, tl, counters):
+    """Phase 21: the multi-device layer with four shards on the one card."""
+    from smarc_navigation_tpu_torch.io.workloads import combined_workload
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _tls, tlp_np = combined_workload(cfg, 60.0)
+    tl_pf = tlp_np.to(dev)
+    win, k8s = mesh_kernels_phase(dev, tl_pf)
+    pf = mesh_pf_phase(dev, tl_pf)
+    fleets = mesh_fleets_phase(dev, cfg, params, tl, counters)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(window=win, k8_shard=k8s, pf=pf, fleets=fleets)
+
+
 def main():
     import torch
 
@@ -2492,6 +2784,9 @@ def main():
     spf_launch, g_spf = slam_pf_replay(dev, cfg, params, tl, counters)
     # --- 20. the mission CLI on the card ----------------------------------------
     cli = cli_phase(dev)
+    # --- 21. the multi-device layer: four shards on the one card ---------------
+    mp = mesh_phase(dev, cfg, params, tl, counters)
+    mpl = mp["pf"]["launches"]
 
     def entry(name, source, replaces, n, err, ms_, plain, bnd, library=None, **extra):
         return dict(name=name, route="cuda", source=f"smarc_navigation_tpu_torch/csrc/{source}",
@@ -2555,13 +2850,25 @@ def main():
               pk[k].get("library_ms"), **{x: pk[k][x] for x in ("nticks_ms", "fit", "no_jitter",
                                                                  "by_weights", "kernel_ms")
                                           if x in pk[k]},
-              **({"launches_by_path": {"cli-pf": cli["cli-pf"][name]}}
-                 if k in ("K5", "K7") else {}))
+              **({"launches_by_path": {"cli-pf": cli["cli-pf"][name],
+                                       **({"pf-1M-60s-mesh4": mpl[name]} if name in mpl else {})}}
+                 if k in ("K5", "K7") else {}),
+              **({"shard": mp["k8_shard"], "launches_by_path": {"pf-1M-60s-mesh4": mpl[name]}}
+                 if k == "K8" else {}))
         for k, name, src, rep, cnt in (
             ("K5", "predict_call_multi", "pf_predict.cu", "pf_kernels.py:820", pf_launch),
             ("K6", "predict_call", "pf_predict.cu", "pf_kernels.py:865", pt_launch),
             ("K7", "expand_gather_call", "pf_resample.cu", "pf_kernels.py:562", pf_launch),
-            ("K8", "jitter_moments_call", "pf_resample.cu", "pf_kernels.py:472", pf_launch))
+            ("K8", "jitter_moments_call", "pf_resample.cu", "pf_kernels.py:472", mpl))
+    ] + [
+        # K7's window form: a particle shard's slots from its halo-extended
+        # window (resample_dist.py:148 in the reference), timed at an interior
+        # shard of the 2^20 bank split four ways; launches from phase 21b
+        entry("expand_gather_window_call", "pf_resample.cu", "pf_kernels.py:562",
+              mpl["expand_gather_window_call"], mp["window"]["err"], mp["window"]["ms"],
+              mp["window"]["plain_ms"], mp["window"]["bound"], None,
+              kernel_ms=mp["window"]["kernel_ms"], shape=mp["window"]["shape"],
+              launches_by_path={"pf-1M-60s-mesh4": mpl["expand_gather_window_call"]}),
     ] + [
         entry("hungarian_lanes", "slam_da.cu", "slam_da_kernels.py:616",
               l256["full"]["hungarian_lanes"], k256["K11"]["err"], k256["K11"]["ms"],
@@ -2613,6 +2920,15 @@ def main():
           + ", ".join(f"{r * 1e3 / SPF_T:.1f}" for r in g_spf["replays_ms"]) + "); "
           f"raycast-fleet1024 replays: "
           + ", ".join(f"{r * 1e3 / RC_T:.1f}" for r in g_rc["replays_ms"]) + " us/fleet tick",
+          flush=True)
+    fl = mp["fleets"]
+    print(f"mesh summary (four shards on one card; no scaling is measured): pf-1M-60s "
+          f"{mp['pf']['ms']:.2f} ms over 4 particle shards against {mp['pf']['unsharded_ms']:.2f} "
+          f"unsharded; slam-fleet128-L64 over 4 mission shards {fl['slam']['ms']:.1f} against "
+          f"{fl['slam']['unsharded_ms']:.1f} ms; slam-pf-fleet128 (T={MESH_SPF_T}) over 2 x 2 "
+          f"{fl['slam_pf']['ms']:.1f} against {fl['slam_pf']['unsharded_ms']:.1f} ms; "
+          f"raycast-fleet1024 (T={MESH_RC_T}) over 4 {fl['raycast']['ms']:.1f} against "
+          f"{fl['raycast']['unsharded_ms']:.1f} ms; every sharded run bitwise its unsharded run",
           flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,12 @@ K1 and K2 per tick, every particle bank stepped at once on its device,
 graphed). Slice 13 adds the host and IO layer and the mission CLI
 (``run.py``: ``demo``, ``pf``, ``replay``; the chunked replay with
 checkpoint/resume ``io.replay``; ``native.py``, the host C++ JV and binner).
+Slice 14 adds the multi-device layer: ``parallel.mesh`` (a (mission,
+particle) grid of devices driven from one process, its shardings and
+collectives), ``parallel.resample_dist`` (the distributed systematic
+resample, on K7's window form) and every ``pmesh=`` / ``device_mesh=``
+path (the particle-sharded PF on K5/K6 with a particle offset, K7's window
+form and K8; the mission-sharded SLAM, raycast and SLAM + PF fleets).
 
 Layout (same paths as the reference):
   run.py     the mission CLI (``python -m smarc_navigation_tpu_torch.run``)
@@ -37,7 +43,7 @@ Layout (same paths as the reference):
              raycast, slam_da_kernels (K1, K11), slam_kernels (K2-K4, K12),
              pf_kernels (K5-K8), loc_kernels (K9), ekf15_kernels (K10)
   parallel/  fleet: batch_timelines, run_combined, the SLAM + PF fleet,
-             run_raycast_fleet
+             run_raycast_fleet; mesh; resample_dist
   models/    ekf_slam, particle_filter, ekf_localization, ekf_15state,
              motion_model, dead_reckoning, sensors
 """

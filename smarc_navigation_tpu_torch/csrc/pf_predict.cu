@@ -8,7 +8,11 @@
 // x/y += R(roll, pitch, yaw)·v·dt [+ noise]; z/roll/pitch substituted from
 // odometry once any odometry has arrived; the 8 moment sums of the new bank
 // (x, y, x², y², xy, sin yaw, cos yaw, count) per block of 1024 particles.
-// Rows of ticks [nticks, K) are written as zeros.
+// Rows of ticks [nticks, K) are written as zeros. The generator's particle
+// index is idx_off + j: a particle shard passes its first global index
+// (the reference offsets each shard's seeds by its global chunk index,
+// particle_filter.py:527-535, 552-560), so a sharded bank draws the
+// unsharded bank's noise column for column.
 //
 // The 256-thread blocks walk the 1024-particle groups (a persistent grid up
 // to two ticks, else a block per group; see launch_one); a block's thread
@@ -119,7 +123,7 @@ __device__ inline void stage_group(float* dst, const float* __restrict__ parts, 
 
 template <bool NXY, bool NYAW, int KFIX, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-predict_kernel(int n, int K_, int nticks, const float* __restrict__ parts,
+predict_kernel(int n, int K_, int nticks, int idx_off, const float* __restrict__ parts,
                const float* __restrict__ par16, const int* __restrict__ seeds,
                float* __restrict__ out, float* __restrict__ sums) {
   const int K = KFIX > 0 ? KFIX : K_;
@@ -185,8 +189,9 @@ predict_kernel(int n, int K_, int nticks, const float* __restrict__ parts,
       for (int k = 0; k < kPPT; ++k) {
         const int j = base + k * kThreads + tid;
         float nx = 0.0f, ny = 0.0f, nw = 0.0f, unused;
-        if (NXY) pf_rng::normal_pair(k0, k1, (uint32_t)j, &nx, &ny);
-        if (NYAW) pf_rng::normal_pair(k2, k3, (uint32_t)j, &nw, &unused);
+        const uint32_t gi = (uint32_t)idx_off + (uint32_t)j;  // the generator's particle index
+        if (NXY) pf_rng::normal_pair(k0, k1, gi, &nx, &ny);
+        if (NYAW) pf_rng::normal_pair(k2, k3, gi, &nw, &unused);
         float yaw = yw[k] + dyaw;
         if (NYAW) yaw = yaw + nw * sd_w;
         yaw = wrap_angle(yaw);
@@ -249,8 +254,9 @@ predict_kernel(int n, int K_, int nticks, const float* __restrict__ parts,
 // block per group; 10 ticks 76.5 persistent, 72.8 a block per group. The
 // occupancy is cached per instantiation and device.
 template <bool NXY, bool NYAW, int KFIX, bool VEC>
-cudaError_t launch_one(int device, cudaStream_t s, int n, int K, int nticks, const float* parts,
-                       const float* par16, const int* seeds, float* out, float* sums) {
+cudaError_t launch_one(int device, cudaStream_t s, int n, int K, int nticks, int idx_off,
+                       const float* parts, const float* par16, const int* seeds, float* out,
+                       float* sums) {
   static int per_sm[64] = {0}, sms[64] = {0};
   auto kern = predict_kernel<NXY, NYAW, KFIX, VEC>;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
@@ -266,32 +272,38 @@ cudaError_t launch_one(int device, cudaStream_t s, int n, int K, int nticks, con
   const int cap = per_sm[device] * sms[device];
   const int rounds = (P + cap - 1) / cap;
   const int blocks = nticks <= 2 ? (P + rounds - 1) / rounds : P;
-  kern<<<blocks, kThreads, kStageBytes, s>>>(n, K, nticks, parts, par16, seeds, out, sums);
+  kern<<<blocks, kThreads, kStageBytes, s>>>(n, K, nticks, idx_off, parts, par16, seeds, out,
+                                             sums);
   return cudaGetLastError();
 }
 
 template <int KFIX, bool VEC>
 cudaError_t launch(bool nxy, bool nyaw, int device, cudaStream_t s, int n, int K,
-                   int nticks, const float* parts, const float* par16,
+                   int nticks, int idx_off, const float* parts, const float* par16,
                    const int* seeds, float* out, float* sums) {
   if (nxy && nyaw)
-    return launch_one<true, true, KFIX, VEC>(device, s, n, K, nticks, parts, par16, seeds, out, sums);
+    return launch_one<true, true, KFIX, VEC>(device, s, n, K, nticks, idx_off, parts, par16,
+                                             seeds, out, sums);
   if (nxy)
-    return launch_one<true, false, KFIX, VEC>(device, s, n, K, nticks, parts, par16, seeds, out, sums);
+    return launch_one<true, false, KFIX, VEC>(device, s, n, K, nticks, idx_off, parts, par16,
+                                              seeds, out, sums);
   if (nyaw)
-    return launch_one<false, true, KFIX, VEC>(device, s, n, K, nticks, parts, par16, seeds, out, sums);
-  return launch_one<false, false, KFIX, VEC>(device, s, n, K, nticks, parts, par16, seeds, out, sums);
+    return launch_one<false, true, KFIX, VEC>(device, s, n, K, nticks, idx_off, parts, par16,
+                                              seeds, out, sums);
+  return launch_one<false, false, KFIX, VEC>(device, s, n, K, nticks, idx_off, parts, par16,
+                                             seeds, out, sums);
 }
 
 }  // namespace
 
 extern "C" int pf_predict_launch(int device, void* stream, int n, int K, int nticks,
-                                 int nxy, int nyaw, int single, const void* parts,
+                                 int nxy, int nyaw, int single, int idx_off, const void* parts,
                                  const void* par16, const void* seeds, void* out,
                                  void* sums) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (n < 1 || K < 1 || K > kMaxK || nticks < 0 || nticks > K || (single && K != 1))
+  if (n < 1 || K < 1 || K > kMaxK || nticks < 0 || nticks > K || (single && K != 1) ||
+      idx_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pp = (const float*)parts;
@@ -302,10 +314,10 @@ extern "C" int pf_predict_launch(int device, void* stream, int n, int K, int nti
   // 16-byte copies need every row 16-byte aligned: n % 4 == 0 and the bank too
   const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(parts) & 15) == 0;
   if (single)
-    e = vec ? launch<1, true>(nxy, nyaw, device, s, n, K, nticks, pp, pr, sd, o, sm)
-            : launch<1, false>(nxy, nyaw, device, s, n, K, nticks, pp, pr, sd, o, sm);
+    e = vec ? launch<1, true>(nxy, nyaw, device, s, n, K, nticks, idx_off, pp, pr, sd, o, sm)
+            : launch<1, false>(nxy, nyaw, device, s, n, K, nticks, idx_off, pp, pr, sd, o, sm);
   else
-    e = vec ? launch<0, true>(nxy, nyaw, device, s, n, K, nticks, pp, pr, sd, o, sm)
-            : launch<0, false>(nxy, nyaw, device, s, n, K, nticks, pp, pr, sd, o, sm);
+    e = vec ? launch<0, true>(nxy, nyaw, device, s, n, K, nticks, idx_off, pp, pr, sd, o, sm)
+            : launch<0, false>(nxy, nyaw, device, s, n, K, nticks, idx_off, pp, pr, sd, o, sm);
   return (int)e;
 }

@@ -3,21 +3,27 @@
 //
 // Replaces the TPU kernels smarc_navigation_tpu/ops/pf_kernels.py::
 // expand_gather_call (K7, pallas_call at :562, body _make_resample_kernel,
-// driven by systematic_resample_gather) and ::jitter_moments_call (K8,
-// pallas_call at :472, body _jitter_kernel). Contract: this package's
-// ops/pf_kernels.expand_gather_call_reference / jitter_moments_call_reference:
-// output slot j takes ancestor i = min{i : m_cum[i] > j}
-// (resampling._expand_blocks), every row is gathered, and with a jitter
+// driven by systematic_resample_gather and, on a halo-extended window with
+// an output offset, by parallel/resample_dist.py:148) and
+// ::jitter_moments_call (K8, pallas_call at :472, body _jitter_kernel).
+// Contract: this package's ops/pf_kernels.expand_gather_call_reference /
+// expand_gather_window_call_reference / jitter_moments_call_reference:
+// output slot j of n takes ancestor i = min{i : m_cum[i] > out_off + j},
+// clamped to n_in - 1, of the n_in input columns (the whole-bank form is
+// out_off = 0, n_in = n: resampling._expand_blocks), every row is gathered,
+// and with a jitter
 // x/y/yaw get sd·N(0,1) from the generator keyed on (seed, seed_off + j) and
 // the block's 8 moment sums are written to an (8, n_blocks) partials buffer.
 //
 // K7 runs in two phases in one cooperative launch of a persistent grid
 // (every block resident at once, so a block may wait for another):
 //   A. ancestors by a merge-path partition (a load-balanced search) of the
-//      slot sequence 0..n-1 against m_cum: merging the two sorted lists, a
-//      count boundary m_cum[i] goes before slot j when m_cum[i] <= j, so the
-//      slot is emitted after exactly its ancestor's number of boundaries.
-//      The merged sequence (boundaries and slots, 2n items) is cut into
+//      slot sequence out_off..out_off+n-1 against m_cum: merging the two
+//      sorted lists, a count boundary m_cum[i] goes before slot j when
+//      m_cum[i] <= out_off + j, so the slot is emitted after exactly its
+//      ancestor's number of boundaries (boundaries below the window all go
+//      first, those past it last). The merged sequence (n_in boundaries and
+//      n slots) is cut into
 //      fixed spans of kSpan items, a contiguous run of spans per block. The
 //      block finds where its run starts by one block-wide 256-ary diagonal
 //      search of m_cum (three rounds of loads at N = 2^20); a span's window
@@ -109,22 +115,23 @@ __device__ __forceinline__ void accumulate(float acc[7], float x, float y, float
 }
 
 // The boundaries of m_cum merged before diagonal d (A-first on ties: the
-// first a with m_cum[a] > d - 1 - a), by the whole block: each round the 256
+// first a with m_cum[a] - off > d - 1 - a), by the whole block: each round the 256
 // threads probe evenly spaced candidates and the count of true probes (a
 // prefix) keeps the stretch where the predicate turns false; three rounds of
 // loads at N = 2^20. Every thread must call it; every thread returns it.
-__device__ int block_split(const int* __restrict__ m_cum, int n, int d, int* s_lohi, int* s_cnt) {
+__device__ int block_split(const int* __restrict__ m_cum, int n_in, int n, int off, int d,
+                           int* s_lohi, int* s_cnt) {
   const int tid = threadIdx.x;
   if (tid == 0) {
     s_lohi[0] = max(0, d - n);
-    s_lohi[1] = min(d, n);
+    s_lohi[1] = min(d, n_in);
   }
   __syncthreads();
   while (s_lohi[0] < s_lohi[1]) {
     const int lo = s_lohi[0], hi = s_lohi[1];
     const int step = (hi - lo + kThreads - 1) / kThreads;
     const int a = lo + tid * step;
-    const bool pred = a < hi && __ldg(m_cum + a) <= d - 1 - a;
+    const bool pred = a < hi && __ldg(m_cum + a) - off <= d - 1 - a;
     const int c = __popc(__ballot_sync(kFull, pred));
     if ((tid & 31) == 0) s_cnt[tid >> 5] = c;
     __syncthreads();
@@ -159,11 +166,12 @@ struct GroupSmem {
 };
 
 // One 1024-slot group g: every row gathered at the slots' ancestors (GATHER:
-// from anc; else the slot itself), the jitter on x/y/yaw, and the group's
-// moment partial (JITTER), summed per thread over slots k·256 + tid (k < 4)
-// in order, then block_moments. VEC: n % 4 == 0 and out 16-byte aligned.
+// from anc, rows of n_in columns; else the slot itself, n_in = n), the jitter
+// on x/y/yaw, and the group's moment partial (JITTER), summed per thread over
+// slots k·256 + tid (k < 4) in order, then block_moments. VEC: n % 4 == 0 and
+// out 16-byte aligned.
 template <bool GATHER, bool JITTER, bool VEC>
-__device__ __forceinline__ void group_pass(int g, int n, int rows, const int* anc,
+__device__ __forceinline__ void group_pass(int g, int n, int n_in, int rows, const int* anc,
                                            const float* __restrict__ parts, const Jitter& J,
                                            int seed_off, float* __restrict__ out,
                                            float* __restrict__ sums, int P, GroupSmem& sm) {
@@ -177,14 +185,14 @@ __device__ __forceinline__ void group_pass(int g, int n, int rows, const int* an
         const int4 q = __ldcg(reinterpret_cast<const int4*>(anc + j));
         a[0] = q.x, a[1] = q.y, a[2] = q.z, a[3] = q.w;
 #pragma unroll
-        for (int w = 0; w < 4; ++w) a[w] = min(max(a[w], 0), n - 1);
+        for (int w = 0; w < 4; ++w) a[w] = min(max(a[w], 0), n_in - 1);
       } else {
 #pragma unroll
         for (int w = 0; w < 4; ++w) a[w] = j + w;
       }
       for (int r = 0; r < rows; ++r) {
         if (JITTER && (r == 0 || r == 1 || r == 5)) continue;
-        const float* src = parts + (size_t)r * n;
+        const float* src = parts + (size_t)r * n_in;
         *reinterpret_cast<float4*>(out + (size_t)r * n + j) =
             make_float4(__ldg(src + a[0]), __ldg(src + a[1]), __ldg(src + a[2]), __ldg(src + a[3]));
       }
@@ -193,8 +201,8 @@ __device__ __forceinline__ void group_pass(int g, int n, int rows, const int* an
 #pragma unroll
         for (int w = 0; w < 4; ++w) {
           x[w] = __ldg(parts + a[w]);
-          y[w] = __ldg(parts + (size_t)n + a[w]);
-          yw[w] = __ldg(parts + 5 * (size_t)n + a[w]);
+          y[w] = __ldg(parts + (size_t)n_in + a[w]);
+          yw[w] = __ldg(parts + 5 * (size_t)n_in + a[w]);
           jitter(J, (uint32_t)(seed_off + j + w), x[w], y[w], yw[w]);
           sm.x[4 * tid + w] = x[w];
           sm.y[4 * tid + w] = y[w];
@@ -211,14 +219,14 @@ __device__ __forceinline__ void group_pass(int g, int n, int rows, const int* an
       const int e = k * kThreads + tid;
       const int j = base + e;
       if (j >= n) continue;
-      const int i = GATHER ? min(max(__ldcg(anc + j), 0), n - 1) : j;
+      const int i = GATHER ? min(max(__ldcg(anc + j), 0), n_in - 1) : j;
       for (int r = 0; r < rows; ++r) {
         if (JITTER && (r == 0 || r == 1 || r == 5)) continue;
-        out[(size_t)r * n + j] = __ldg(parts + (size_t)r * n + i);
+        out[(size_t)r * n + j] = __ldg(parts + (size_t)r * n_in + i);
       }
       if (JITTER) {
-        float x = __ldg(parts + i), y = __ldg(parts + (size_t)n + i);
-        float yaw = __ldg(parts + 5 * (size_t)n + i);
+        float x = __ldg(parts + i), y = __ldg(parts + (size_t)n_in + i);
+        float yaw = __ldg(parts + 5 * (size_t)n_in + i);
         jitter(J, (uint32_t)(seed_off + j), x, y, yaw);
         out[j] = x;
         out[(size_t)n + j] = y;
@@ -243,16 +251,17 @@ __device__ __forceinline__ void group_pass(int g, int n, int rows, const int* an
 
 template <bool JITTER, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-gather_kernel(int n, int rows, const int* __restrict__ m_cum, const float* __restrict__ parts,
-              const float* __restrict__ sd3, const int* __restrict__ seed, int seed_off,
-              float* __restrict__ out, float* __restrict__ sums, int* __restrict__ anc,
-              int* __restrict__ ready) {
-  __shared__ int s_m[kSpan];    // a span's window of m_cum
+gather_kernel(int n, int n_in, int off, int rows, const int* __restrict__ m_cum,
+              const float* __restrict__ parts, const float* __restrict__ sd3,
+              const int* __restrict__ seed, int seed_off, float* __restrict__ out,
+              float* __restrict__ sums, int* __restrict__ anc, int* __restrict__ ready) {
+  __shared__ int s_m[kSpan];    // a span's window of m_cum - off
   __shared__ int s_anc[kSpan];  // ancestors of the span's slots
   __shared__ int s_lohi[2], s_cnt[kThreads / 32], s_a1;
   __shared__ GroupSmem sm;
   const int tid = threadIdx.x;
-  const int spans = (int)((2LL * n + kSpan - 1) / kSpan);
+  const int total = n_in + n;   // merged items: boundaries, then slots
+  const int spans = (total + kSpan - 1) / kSpan;
   const int P = (n + kGroup - 1) / kGroup;
 
   {
@@ -261,22 +270,22 @@ gather_kernel(int n, int rows, const int* __restrict__ m_cum, const float* __res
     // next window is loaded while the span merges
     const int per = (spans + gridDim.x - 1) / gridDim.x;
     const int s0 = blockIdx.x * per, s1 = min(spans, s0 + per);
-    int a0 = s0 < s1 ? block_split(m_cum, n, s0 * kSpan, s_lohi, s_cnt) : 0;
+    int a0 = s0 < s1 ? block_split(m_cum, n_in, n, off, s0 * kSpan, s_lohi, s_cnt) : 0;
     int win[kVT];  // this thread's share of the next window, loaded ahead
 #pragma unroll
     for (int k = 0; k < kVT; ++k) {
       const int i = tid + k * kThreads;
-      win[k] = s0 < s1 && i < n - a0 ? __ldg(m_cum + a0 + i) : 0;
+      win[k] = s0 < s1 && i < n_in - a0 ? __ldg(m_cum + a0 + i) - off : 0;
     }
     for (int sp = s0; sp < s1; ++sp) {
       const int d0 = sp * kSpan;
-      const int d1 = (int)(2LL * n < (long long)d0 + kSpan ? 2LL * n : (long long)d0 + kSpan);
-      const int wn = min(kSpan, n - a0);  // the window m_cum[a0, a0 + wn)
+      const int d1 = min(total, d0 + kSpan);
+      const int wn = min(kSpan, n_in - a0);  // the window m_cum[a0, a0 + wn)
 #pragma unroll
       for (int k = 0; k < kVT; ++k) s_m[tid + k * kThreads] = win[k];
       __syncthreads();
-      if (tid == 0) {  // the span's end: the first a with m_cum[a] > d1 - 1 - a
-        int lo = max(a0, d1 - n), hi = min(min(d1, n), a0 + min(wn, d1 - d0));
+      if (tid == 0) {  // the span's end: the first a with m_cum[a] - off > d1 - 1 - a
+        int lo = max(a0, d1 - n), hi = min(min(d1, n_in), a0 + min(wn, d1 - d0));
         while (lo < hi) {
           const int mid = (lo + hi) >> 1;
           if (s_m[mid - a0] <= d1 - 1 - mid) lo = mid + 1;
@@ -290,7 +299,7 @@ gather_kernel(int n, int rows, const int* __restrict__ m_cum, const float* __res
 #pragma unroll
         for (int k = 0; k < kVT; ++k) {
           const int i = tid + k * kThreads;
-          win[k] = i < n - a1 ? __ldg(m_cum + a1 + i) : 0;
+          win[k] = i < n_in - a1 ? __ldg(m_cum + a1 + i) - off : 0;
         }
       }
       const int b0 = d0 - a0, b1 = d1 - a1;  // the span's slots [b0, b1)
@@ -339,7 +348,7 @@ gather_kernel(int n, int rows, const int* __restrict__ m_cum, const float* __res
         __nanosleep(64);
     }
     __syncthreads();
-    group_pass<true, JITTER, VEC>(g, n, rows, anc, parts, J, seed_off, out, sums, P, sm);
+    group_pass<true, JITTER, VEC>(g, n, n_in, rows, anc, parts, J, seed_off, out, sums, P, sm);
     __syncthreads();
   }
 }
@@ -352,16 +361,17 @@ jitter_kernel(int n, int rows, const float* __restrict__ parts, const float* __r
               float* __restrict__ sums) {
   __shared__ GroupSmem sm;
   const Jitter J = make_jitter(sd3, seed);
-  group_pass<false, true, VEC>(blockIdx.x, n, rows, nullptr, parts, J, seed_off, out, sums,
+  group_pass<false, true, VEC>(blockIdx.x, n, n, rows, nullptr, parts, J, seed_off, out, sums,
                                gridDim.x, sm);
 }
 
 // K7's persistent grid: every block the card holds at once, at most one per
 // span or group (the occupancy is cached per instantiation and device)
 template <bool JITTER, bool VEC>
-cudaError_t launch_gather(int device, cudaStream_t s, int n, int rows, const int* m_cum,
-                          const float* parts, const float* sd3, const int* seed, int seed_off,
-                          float* out, float* sums, int* anc, int* ready) {
+cudaError_t launch_gather(int device, cudaStream_t s, int n, int n_in, int off, int rows,
+                          const int* m_cum, const float* parts, const float* sd3,
+                          const int* seed, int seed_off, float* out, float* sums, int* anc,
+                          int* ready) {
   static int per_sm[64] = {0}, sms[64] = {0};
   auto kern = gather_kernel<JITTER, VEC>;
   if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
@@ -373,9 +383,10 @@ cudaError_t launch_gather(int device, cudaStream_t s, int n, int rows, const int
     if (e != cudaSuccess) return e;
     per_sm[device] = occ > 0 ? occ : 1;
   }
-  const long long spans = (2LL * n + kSpan - 1) / kSpan, P = (n + kGroup - 1) / kGroup;
+  const long long spans = ((long long)n_in + n + kSpan - 1) / kSpan, P = (n + kGroup - 1) / kGroup;
   const int grid = (int)std::min((long long)per_sm[device] * sms[device], std::max(spans, P));
-  void* args[] = {&n, &rows, &m_cum, &parts, &sd3, &seed, &seed_off, &out, &sums, &anc, &ready};
+  void* args[] = {&n,    &n_in, &off,     &rows, &m_cum, &parts, &sd3,
+                  &seed, &seed_off, &out, &sums, &anc,   &ready};
   return cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kThreads), args, 0, s);
 }
 
@@ -399,18 +410,23 @@ extern "C" int pf_uniforms_launch(int device, void* stream, int n, int seed,
   return (int)cudaGetLastError();
 }
 
-// parts/out (rows, n) with rows 6 or 8; m_cum (n,) int32, anc (n,) int32
-// scratch and ready (ceil(n/1024) + 1,) int32 zeros (gather != 0); sd3 (3,) f32,
-// seed (1,) int32, sums (8, ceil(n/1024)) (jitter != 0).
-// gather=1, jitter=0|1: K7; gather=0, jitter=1: K8.
-extern "C" int pf_resample_launch(int device, void* stream, int n, int rows,
-                                  int gather, int jitter, const void* m_cum,
+// out (rows, n) with rows 6 or 8; parts (rows, n_in) and m_cum (n_in,) int32
+// (gather != 0: slot j takes ancestor min{i : m_cum[i] > out_off + j},
+// clamped to n_in - 1), anc (n,) int32 scratch and ready (ceil(n/1024) + 1,)
+// int32 zeros; parts (rows, n), n_in = n and out_off = 0 without the gather;
+// sd3 (3,) f32, seed (1,) int32, sums (8, ceil(n/1024)) (jitter != 0).
+// gather=1, jitter=0|1: K7 (whole bank: n_in = n, out_off = 0; window: any);
+// gather=0, jitter=1: K8.
+extern "C" int pf_resample_launch(int device, void* stream, int n, int n_in, int out_off,
+                                  int rows, int gather, int jitter, const void* m_cum,
                                   const void* parts, const void* sd3,
                                   const void* seed, int seed_off, void* out,
                                   void* sums, void* anc, void* ready) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (n < 1 || n > (1 << 30) || (rows != 6 && rows != 8) || (!gather && !jitter) ||
+  if (n < 1 || n > (1 << 30) || n_in < 1 || n_in > (1 << 30) || (rows != 6 && rows != 8) ||
+      (long long)n + n_in > (1LL << 31) - kSpan || (!gather && !jitter) ||
+      (!gather && (n_in != n || out_off != 0)) ||
       (gather && (anc == nullptr || ready == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -433,10 +449,14 @@ extern "C" int pf_resample_launch(int device, void* stream, int n, int rows,
     return (int)cudaGetLastError();
   }
   if (jitter)
-    e = vec ? launch_gather<true, true>(device, s, n, rows, mc, pp, sd, sp, seed_off, o, sm, an, rd)
-            : launch_gather<true, false>(device, s, n, rows, mc, pp, sd, sp, seed_off, o, sm, an, rd);
+    e = vec ? launch_gather<true, true>(device, s, n, n_in, out_off, rows, mc, pp, sd, sp,
+                                        seed_off, o, sm, an, rd)
+            : launch_gather<true, false>(device, s, n, n_in, out_off, rows, mc, pp, sd, sp,
+                                         seed_off, o, sm, an, rd);
   else
-    e = vec ? launch_gather<false, true>(device, s, n, rows, mc, pp, sd, sp, seed_off, o, sm, an, rd)
-            : launch_gather<false, false>(device, s, n, rows, mc, pp, sd, sp, seed_off, o, sm, an, rd);
+    e = vec ? launch_gather<false, true>(device, s, n, n_in, out_off, rows, mc, pp, sd, sp,
+                                         seed_off, o, sm, an, rd)
+            : launch_gather<false, false>(device, s, n, n_in, out_off, rows, mc, pp, sd, sp,
+                                          seed_off, o, sm, an, rd);
   return (int)e;
 }

@@ -19,8 +19,11 @@ K1 in its pose-rows form, then K4,
 launches its CUDA kernel for CUDA tensors and takes its plain PyTorch
 version for CPU tensors.
 
-Not yet ported (see ROADMAP.md Queue 1): mission sharding
-(``run_fleet(device_mesh=...)``) raises ``NotImplementedError``.
+Mission sharding (``run_fleet(device_mesh=...)``): the missions split over
+the mesh's ``mission`` axis, and each mission shard replays its missions
+on the first device of its mesh row (graphed on the card), once: the
+reference's copies along the particle axis compute the same values. The
+outputs are joined on the caller's device, bitwise the unsharded replay's.
 """
 
 from __future__ import annotations
@@ -36,11 +39,11 @@ from torch.func import jacfwd, vmap
 from ..configs import EKFSlamConfig
 from ..ops import assignment, slam_da_kernels, slam_kernels
 from ..ops.timeline import build_timeline
+from ..parallel import mesh as mesh_lib
 from ..utils import graphs
 from ..utils.geometry import Transform, rotmat_from_rpy, rpy_from_quat, wrap_angle
 from ..utils.linalg import chi2_quantile, inv_small
 
-_LATER = "not ported yet (mission sharding); see ROADMAP.md Queue 1"
 
 
 class SlamParams(NamedTuple):
@@ -838,7 +841,8 @@ def run_fleet(
     that covariance writeback, as the reference does for its non-default
     modes."""
     if device_mesh is not None:
-        raise NotImplementedError(f"device_mesh= is {_LATER}")
+        return _run_fleet_sharded(batched_timeline, params, cfg, update_mode, device_mesh,
+                                  graph, streamed)
     if update_mode == "marginal":
         return run_fleet_marginal(batched_timeline, params, cfg, graph=graph)
     if update_mode == "marginal_dense":
@@ -855,6 +859,24 @@ def run_fleet(
         key = ("ekf_slam.run_fleet", cfg, names, streamed)
         return graphs.run(key, lambda x: _full_loop(x, cfg, names, streamed), inp)
     return _full_loop(inp, cfg, names, streamed)
+
+
+def _run_fleet_sharded(tl, params: SlamParams, cfg: EKFSlamConfig, update_mode: str,
+                       device_mesh, graph: bool, streamed: bool):
+    """``run_fleet`` with the missions split over ``device_mesh``'s mission
+    axis: each mission shard's replay (any update mode) on the first device
+    of its mesh row, the final states and the (T, B, ...) outputs joined on
+    the timeline's device."""
+    M = device_mesh.shape[mesh_lib.MISSION_AXIS]
+    B = tl.ticks.shape[0]
+    if B % M:
+        raise ValueError(f"fleet size {B} not divisible by mission axis {M}")
+    res = [run_fleet(t, mesh_lib.tree_map(lambda x, d=row[0]: x.to(d), params), cfg,
+                     update_mode, graph=graph, streamed=streamed)
+           for t, row in zip(mesh_lib.shard_missions(tl, device_mesh), device_mesh.devices)]
+    dev = tl.ticks.device
+    return (mesh_lib.join_missions([r[0] for r in res], dev, 0),
+            mesh_lib.join_missions([r[1] for r in res], dev, 1))
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,20 @@ counter-based generator of ``ops.pf_kernels``, in place of the reference's
 ``fleet_update_resample`` step every bank at once, drawing on the banks'
 device: the same keys draw the same bits on the card and on the CPU.
 
-Not in this slice: the particle-sharded paths (``pmesh=``) raise
-``NotImplementedError`` (ROADMAP.md Queue 1 item 12).
+Particle sharding (``pmesh=``, a ``parallel.mesh.Mesh`` with a
+``particle`` axis): the bank's columns split over the devices of the mesh's
+first row, driven from this process. The systematic resample goes through
+``parallel.resample_dist`` (blocked-CDF prefix, halo exchange, K7's window
+form; one host sync per resample for its fit check); the other schemes
+sample the joined bank. The kernel paths keep each shard's (6, ns) columns
+on its device for the whole replay: K5 (or K6) with the shard's first
+global index as ``idx_off``, and on GPS ticks ``_update_resample_fast_shard``
+(weights through ``resampling.normalize_weights_det_shard``, ancestors
+through the distributed resample, the jitter and moments through K8 with
+``seed_off``). Every pmesh path is bitwise its unsharded self, the moments
+too: a shard tiles by ``resampling.CDF_BLOCK``, a multiple of
+``pf_kernels.SUM_GROUP``, so the shards' moment partials side by side are
+the unsharded ones.
 """
 
 from __future__ import annotations
@@ -48,9 +60,9 @@ import torch
 from ..configs import PFConfig
 from ..ops import pf_kernels, resampling
 from ..ops.timeline import Timeline, build_timeline
+from ..parallel import mesh as mesh_lib
+from ..parallel import resample_dist
 from ..utils.geometry import quat_from_rpy_np, rotmat_from_rpy, rpy_from_quat, wrap_angle
-
-_MULTI = "multi-device work, not in the port yet (ROADMAP.md Queue 1 item 12)"
 
 
 class PFParams(NamedTuple):
@@ -223,12 +235,14 @@ def fleet_keys(batch: int, seed: int = 0, device="cuda") -> torch.Tensor:
     return pf_kernels.split_keys(torch.tensor(seed, dtype=torch.int64, device=device), batch)
 
 
-def fleet_normals(key: torch.Tensor, n: int, rows: int) -> torch.Tensor:
+def fleet_normals(key: torch.Tensor, n: int, rows: int, idx_off: int = 0) -> torch.Tensor:
     """(B, rows, n) standard normals under keys (B,): row 2r and 2r+1 are
     the Box-Muller pair of draws 2r, 2r+1 of the counter-based generator
     (``pf_kernels.normal_pair``), so rows x, y, yaw of a predict are the
-    kernels' own ``normals3`` layout when ``rows`` = 3."""
-    idx = torch.arange(n, dtype=torch.int64, device=key.device)
+    kernels' own ``normals3`` layout when ``rows`` = 3. Draws are keyed on
+    the global particle index ``idx_off + j``: a particle shard passes its
+    first index and gets the unsharded bank's columns."""
+    idx = torch.arange(n, dtype=torch.int64, device=key.device) + idx_off
     zs = [z for r in range((rows + 1) // 2) for z in pf_kernels.normal_pair(key[:, None], idx, 2 * r)]
     return torch.stack(zs[:rows], 1)
 
@@ -244,14 +258,15 @@ def fleet_init(batch: int, n_particles: int, params: PFParams, seed: int = 0) ->
 
 
 def fleet_predict(states: FleetPFState, odom: torch.Tensor, ticks: torch.Tensor,
-                  fresh: torch.Tensor, params: PFParams) -> FleetPFState:
+                  fresh: torch.Tensor, params: PFParams, idx_off: int = 0) -> FleetPFState:
     """``predict`` of every bank whose odometry is fresh (odom (B, 13),
     ticks and fresh (B,)); the others, their keys and their t_prev pass
     unchanged, as under the reference's vmapped ``lax.cond``. No host
-    sync."""
+    sync. A particle shard of the banks passes its first global particle
+    index as ``idx_off``."""
     parts = states.particles
     key, sub = pf_kernels.split_keys(states.key, 2).unbind(-1)
-    n3 = fleet_normals(sub, parts.shape[-1], 3).to(parts.dtype)
+    n3 = fleet_normals(sub, parts.shape[-1], 3, idx_off).to(parts.dtype)
     sd = torch.sqrt(params.motion_cov)
     noise = torch.zeros_like(parts)
     noise[:, 0] = n3[:, 0] * sd[0]
@@ -262,6 +277,16 @@ def fleet_predict(states: FleetPFState, odom: torch.Tensor, ticks: torch.Tensor,
     return FleetPFState(particles=torch.where(fresh[:, None, None], moved, parts),
                         key=torch.where(fresh, key, states.key),
                         t_prev=torch.where(fresh, ticks, states.t_prev))
+
+
+def _uses_dist_resample(pmesh, n: int) -> bool:
+    """Whether ``fleet_update_resample`` takes the distributed resample for
+    banks of n particles on ``pmesh``: the shards tile by
+    ``resampling.CDF_BLOCK`` (the reference's test, ``:232-246``)."""
+    if pmesh is None:
+        return False
+    P_ = pmesh.shape[mesh_lib.PARTICLE_AXIS]
+    return n % P_ == 0 and (n // P_) % resampling.CDF_BLOCK == 0
 
 
 def fleet_update_resample(
@@ -281,20 +306,33 @@ def fleet_update_resample(
     Each mission's key splits into its next key and the keys of the
     resample uniforms and of the jitter, as the reference splits its PRNG
     key. ``u`` ((B,) for "systematic", (B, N) for the other schemes) and
-    ``noise`` (B, 6, N) standard normals replace those draws. As in the
-    reference without ``pmesh``, ``use_pallas`` changes nothing here."""
-    if pmesh is not None:
-        raise NotImplementedError(f"pmesh= is {_MULTI}")
+    ``noise`` (B, 6, N) standard normals replace those draws.
+
+    With ``pmesh`` (the systematic scheme only, as the reference) the
+    resample of every mission runs through the fleet form of the
+    distributed resample (``resample_dist.
+    systematic_resample_gather_dist_batched``: missions over the mission
+    axis, each bank's columns over the particle axis) where the shard width
+    tiles by ``resampling.CDF_BLOCK``; narrower banks keep the per-bank
+    sampler (``:232-246``). Both give the same ancestors. ``use_pallas``
+    changes nothing here (the kernel runs on CUDA banks either way)."""
     parts = states.particles
     B, rows, n = parts.shape
+    if pmesh is not None and scheme != "systematic":
+        raise ValueError("particle-axis sharding (pmesh) requires the systematic scheme")
+    use_dist = _uses_dist_resample(pmesh, n)
     key, k_res, k_noise = pf_kernels.split_keys(states.key, 3).unbind(-1)
     if u is None:
         idx = (torch.zeros_like(k_res) if scheme == "systematic"
                else torch.arange(n, dtype=torch.int64, device=parts.device))
         u = pf_kernels.uniforms(k_res if scheme == "systematic" else k_res[:, None], idx, 0)
     w = _gps_weights(parts, gps_map_xy, params)
-    anc = resampling.SCHEMES[scheme](u.to(w.dtype), w).long()
-    parts = torch.gather(parts, 2, anc[:, None, :].expand(B, rows, n))
+    if use_dist:
+        parts = resample_dist.systematic_resample_gather_dist_batched(
+            parts, w, u.to(w.dtype), pmesh, use_pallas=use_pallas)
+    else:
+        anc = resampling.SCHEMES[scheme](u.to(w.dtype), w).long()
+        parts = torch.gather(parts, 2, anc[:, None, :].expand(B, rows, n))
     if noise is None:
         noise = fleet_normals(k_noise, n, 6).to(parts.dtype)
     parts = parts + noise * torch.sqrt(params.res_noise_cov)[None, :, None]
@@ -316,14 +354,21 @@ def update_resample(
     ``u`` gives the scheme's uniforms (a scalar for "systematic", (N,) for
     the others) and ``noise`` the (6, N) standard normals of the jitter;
     each is drawn from the state's generator when not given. With
-    ``use_pallas`` the systematic scheme gathers through K7."""
-    if pmesh is not None:
-        raise NotImplementedError(f"pmesh= is {_MULTI}")
+    ``use_pallas`` the systematic scheme gathers through K7.
+
+    ``pmesh``: a mesh with a ``particle`` axis routes the systematic
+    resample through the distributed resample (``parallel.resample_dist``:
+    blocked-CDF prefix, halo exchange, K7's window form per shard); the
+    other schemes sample the joined bank. The same draws give bitwise the
+    unsharded result."""
     parts = state.particles
     n = parts.shape[1]
     w = _gps_weights(parts, gps_map_xy, params)
     u = state.generator if u is None else u
-    if use_pallas and scheme == "systematic":
+    if pmesh is not None and scheme == "systematic":
+        parts = resample_dist.systematic_resample_gather_dist(parts, w, u, pmesh,
+                                                              use_pallas=use_pallas)
+    elif use_pallas and scheme == "systematic":
         parts = pf_kernels.systematic_resample_gather(parts, w, u)
     else:
         parts = parts[:, resampling.SCHEMES[scheme](u, w).long()]
@@ -358,9 +403,9 @@ def step(
     fresh fix arrives and the vehicle is not diving (host-side branches: one
     sync per tick). ``use_pallas=True`` takes the kernel path: predict and
     pose moments through K6 (``fused_predict_moments``), the systematic
-    gather through K7."""
-    if pmesh is not None:
-        raise NotImplementedError(f"pmesh= is {_MULTI}")
+    gather through K7. ``pmesh``: the update's resample as in
+    ``update_resample``; the predict is elementwise over the bank, so the
+    same on any split."""
     odom = tick.channels["odom"]
     gps = tick.channels["gps"]
     diving = tick.channels["diving"]
@@ -382,7 +427,7 @@ def step(
     else:
         pred = state
 
-    new_state = (update_resample(pred, gps.value[0:2], params, scheme, use_pallas)
+    new_state = (update_resample(pred, gps.value[0:2], params, scheme, use_pallas, pmesh)
                  if do_update else pred)
     if do_update or not use_pallas:
         mean, cov = estimate(new_state.particles)
@@ -395,21 +440,59 @@ def step(
 # the kernel path
 # ---------------------------------------------------------------------------
 
+def _fast_logw(parts, gps_map_xy, params):
+    """GPS log-weights of the kernel path without the reference's constant
+    log-normalizer (as its fast path). The map-frame position is written out
+    elementwise in a fixed order, so a column shard of the bank gets the
+    same bits as the whole bank."""
+    r, t = params.r_m2o, params.t_m2o
+    x, y, z = parts[0], parts[1], parts[2]
+    dx = gps_map_xy[0] - (r[0, 0] * x + r[0, 1] * y + r[0, 2] * z + t[0])
+    dy = gps_map_xy[1] - (r[1, 0] * x + r[1, 1] * y + r[1, 2] * z + t[1])
+    logw = -0.5 * (dx * dx + dy * dy) / params.meas_var
+    return torch.where(torch.isfinite(logw), logw, -math.inf)
+
+
+def _jitter_sd(params):
+    sd = torch.sqrt(params.res_noise_cov)
+    return torch.stack([sd[0], sd[1], sd[5]])
+
+
 def _update_resample_fast(parts, gps_map_xy, u, seed, params):
     """Weights -> systematic resample with the x/y/yaw jitter and the
     post-resample moment sums fused into the gather (K7). ``u`` is the
     resample uniform, ``seed`` the jitter seed. z/roll/pitch are not
-    jittered: the next predict substitutes them from odometry. The weights
-    omit the reference's constant log-normalizer, as its fast path does."""
-    pos_map = params.r_m2o @ parts[0:3] + params.t_m2o[:, None]
-    dx = gps_map_xy[0] - pos_map[0]
-    dy = gps_map_xy[1] - pos_map[1]
-    logw = -0.5 * (dx * dx + dy * dy) / params.meas_var
-    logw = torch.where(torch.isfinite(logw), logw, -math.inf)
-    w = resampling.normalize_weights_det(logw)
-    sd = torch.sqrt(params.res_noise_cov)
-    return pf_kernels.systematic_resample_gather(
-        parts, w, u, jitter_sd=torch.stack([sd[0], sd[1], sd[5]]), seed=seed)
+    jittered: the next predict substitutes them from odometry."""
+    w = resampling.normalize_weights_det(_fast_logw(parts, gps_map_xy, params))
+    return pf_kernels.systematic_resample_gather(parts, w, u, jitter_sd=_jitter_sd(params),
+                                                 seed=seed)
+
+
+def _update_resample_fast_shard(parts, gps_map_xy, u, seed, params, axis_name):
+    """Shard body of the GPS update of the particle-sharded kernel paths
+    (``parts`` the list of (6, ns) shards; ``gps_map_xy``, ``seed`` and
+    ``params`` one copy per shard, ``u`` the resample uniform), in the
+    reference's order (``particle_filter.py:436-494``) and BITWISE
+    ``_update_resample_fast`` on the joined bank:
+
+    * the weights through ``resampling.normalize_weights_det_shard`` (pmax
+      and the order-pinned tree sum decompose over the shards);
+    * the ancestors through ``resample_dist.systematic_gather_shard`` (K7's
+      window form on each shard's halo-extended window);
+    * the x/y/yaw jitter and moment partials through K8
+      (``jitter_moments_call``) with the shard's first global index as
+      ``seed_off``: K7(jitter) is K8(K7) bit for bit.
+
+    Returns (shards, each shard's (8, ns / SUM_GROUP) moment partials)."""
+    logw = [_fast_logw(p, g, prm) for p, g, prm in zip(parts, gps_map_xy, params)]
+    w = resampling.normalize_weights_det_shard(logw, axis_name)
+    ns = parts[0].shape[1]
+    parts = resample_dist.systematic_gather_shard(
+        parts, w, u, axis_name=axis_name, halo=resample_dist._clamped_halo(4096, ns),
+        block=min(512, ns), use_pallas=True)
+    out = [pf_kernels.jitter_moments_call(p, _jitter_sd(prm), sd, seed_off=i * ns)
+           for i, (p, sd, prm) in enumerate(zip(parts, seed, params))]
+    return [o[0] for o in out], [o[1] for o in out]
 
 
 class TickInputs(NamedTuple):
@@ -565,6 +648,85 @@ def _run_ticks(pre: TickInputs, s0_particles, params, nxy, nyaw_on):
     return parts, mean, cov
 
 
+def _shards(pmesh, n: int):
+    """(the 1 x P mesh of ``pmesh``'s first row, the shard width ns) of an
+    n-particle bank on the kernel paths: n splits evenly and each shard
+    tiles by ``resampling.CDF_BLOCK``, as the distributed resample needs."""
+    row = pmesh.row(0)
+    P_ = row.shape[mesh_lib.PARTICLE_AXIS]
+    if n % P_ or (n // P_) % resampling.CDF_BLOCK:
+        raise ValueError(f"particle count {n} does not split over particle axis {P_} into "
+                         f"shards that tile by {resampling.CDF_BLOCK}")
+    return row, n // P_
+
+
+def _join_sums(sums, device) -> torch.Tensor:
+    """Per-shard moment partials (..., 8, ns / SUM_GROUP) side by side: the
+    unsharded partials (ns is a multiple of ``SUM_GROUP``)."""
+    return torch.cat([x.to(device) for x in sums], -1)
+
+
+def _run_segments_sharded(pre: TickInputs, s0_particles, plan, params, nxy, nyaw_on, pmesh):
+    """``_run_segments`` over the particle shards of ``pmesh``: each shard's
+    columns stay on its device; per segment one K5 call per shard (its
+    first global index as ``idx_off``), then on a GPS tick
+    ``_update_resample_fast_shard``. Returns what ``_run_segments`` does,
+    the bank and moments joined on the caller's device."""
+    idx, valid, upd_seg, upd_tick, upd_slot, flat_slot = plan
+    S, K = idx.shape
+    dev = s0_particles.device
+    row, ns = _shards(pmesh, s0_particles.shape[1])
+    seg = mesh_lib.replicate(_segment_inputs(pre, idx, valid, upd_tick), row)
+    prm = mesh_lib.replicate(params, row)
+    bank = mesh_lib.particle_sharding(row, 2, 1)
+    parts = bank.shard(s0_particles)[0]
+    sums_all = []
+    for s in range(S):
+        nt = int(upd_slot[s]) + 1
+        out = [pf_kernels.predict_call_multi(p, g[0][s], g[1][s], nxy=nxy, nyaw=nyaw_on,
+                                             nticks=nt, idx_off=i * ns)
+               for i, (p, g) in enumerate(zip(parts, seg))]
+        parts, sums = [o[0] for o in out], [o[1] for o in out]
+        if upd_seg[s]:
+            parts, s2 = _update_resample_fast_shard(
+                parts, [g[2][s] for g in seg], seg[0][3][s], [g[4][s] for g in seg], prm,
+                mesh_lib.PARTICLE_AXIS)
+            for x, y in zip(sums, s2):
+                x[nt - 1] = y
+        sums_all.append(_join_sums(sums, dev))
+    flat = torch.as_tensor(flat_slot, dtype=torch.int64, device=dev)
+    sums_t = torch.stack(sums_all).reshape(S * K, pf_kernels.N_SUMS, -1)[flat]
+    mean, cov = pf_kernels.finalize_moments(
+        sums_t, pre.vals[:, 2], pre.rpy[:, 0], pre.rpy[:, 1])
+    return bank.join([parts], dev), mean, cov
+
+
+def _run_ticks_sharded(pre: TickInputs, s0_particles, params, nxy, nyaw_on, pmesh):
+    """``_run_ticks`` over the particle shards of ``pmesh``: one K6 call
+    per shard and tick (``idx_off`` the shard's first global index), the
+    GPS update through ``_update_resample_fast_shard``."""
+    upd = pre.do_update.cpu().numpy()
+    dev = s0_particles.device
+    row, ns = _shards(pmesh, s0_particles.shape[1])
+    tk = mesh_lib.replicate((pre.par16, pre.seeds, pre.gps_xy, pre.res_u, pre.noise_seeds), row)
+    prm = mesh_lib.replicate(params, row)
+    bank = mesh_lib.particle_sharding(row, 2, 1)
+    parts = bank.shard(s0_particles)[0]
+    sums_all = []
+    for t in range(len(upd)):
+        out = [pf_kernels.predict_call(p, g[0][t], g[1][t], nxy=nxy, nyaw=nyaw_on, idx_off=i * ns)
+               for i, (p, g) in enumerate(zip(parts, tk))]
+        parts, sums = [o[0] for o in out], [o[1] for o in out]
+        if upd[t]:
+            parts, sums = _update_resample_fast_shard(
+                parts, [g[2][t] for g in tk], tk[0][3][t], [g[4][t] for g in tk], prm,
+                mesh_lib.PARTICLE_AXIS)
+        sums_all.append(_join_sums(sums, dev))
+    mean, cov = pf_kernels.finalize_moments(
+        torch.stack(sums_all), pre.vals[:, 2], pre.rpy[:, 0], pre.rpy[:, 1])
+    return bank.join([parts], dev), mean, cov
+
+
 def _noise_flags(params: PFParams):
     """Which motion-noise rows are on (zero-std rows are compiled out of
     the predict kernel; the reference default zeroes x/y, auv_pf.launch:18)."""
@@ -584,9 +746,10 @@ def run_fast_segmented(
     """Segmented kernel path: the mission is split on the host into runs of
     at most ``k_max`` ticks that end at each GPS-update tick, and each run
     is ONE multi-tick predict (K5) with the bank held in registers. Same
-    semantics as ``run_fast`` (update-tick moments are post-resample)."""
-    if pmesh is not None:
-        raise NotImplementedError(f"pmesh= is {_MULTI}")
+    semantics as ``run_fast`` (update-tick moments are post-resample).
+    With ``pmesh`` the bank's columns split over the mesh's particle axis
+    for the whole replay (``_run_segments_sharded``): bitwise the unsharded
+    bank and moments."""
     n = cfg.particle_count if n_particles is None else n_particles
     dev = timeline.ticks.device
     g = _generator(generator, dev)
@@ -597,7 +760,11 @@ def run_fast_segmented(
 
     s0 = init_state(n, params, g)
     pre = _tick_precompute(timeline, params, g)
-    final_parts, mean, cov = _run_segments(pre, s0.particles, plan, params, nxy, nyaw_on)
+    if pmesh is not None:
+        final_parts, mean, cov = _run_segments_sharded(pre, s0.particles, plan, params, nxy,
+                                                       nyaw_on, pmesh)
+    else:
+        final_parts, mean, cov = _run_segments(pre, s0.particles, plan, params, nxy, nyaw_on)
     out = {"mean": mean, "cov": cov, "updated": torch.as_tensor(upd_host, device=dev)}
     return PFState(particles=final_parts, generator=g, t_prev=pre.lf[-1]), out
 
@@ -612,15 +779,19 @@ def run_fast(
 ):
     """Per-tick kernel path of ``run``: per-tick scalars precomputed over the
     timeline, one fused predict (K6) per tick, the GPS update (K7) on update
-    ticks, moments finalized after the loop from the stacked partials."""
-    if pmesh is not None:
-        raise NotImplementedError(f"pmesh= is {_MULTI}")
+    ticks, moments finalized after the loop from the stacked partials. With
+    ``pmesh``, per particle shard (``_run_ticks_sharded``), bitwise the
+    unsharded run."""
     n = cfg.particle_count if n_particles is None else n_particles
     g = _generator(generator, timeline.ticks.device)
     nxy, nyaw_on = _noise_flags(params)
     s0 = init_state(n, params, g)
     pre = _tick_precompute(timeline, params, g)
-    final_parts, mean, cov = _run_ticks(pre, s0.particles, params, nxy, nyaw_on)
+    if pmesh is not None:
+        final_parts, mean, cov = _run_ticks_sharded(pre, s0.particles, params, nxy, nyaw_on,
+                                                    pmesh)
+    else:
+        final_parts, mean, cov = _run_ticks(pre, s0.particles, params, nxy, nyaw_on)
     out = {"mean": mean, "cov": cov, "updated": pre.do_update}
     return PFState(particles=final_parts, generator=g, t_prev=pre.lf[-1]), out
 
@@ -640,19 +811,24 @@ def run(
     mean (T,6), cov (T,3,3), updated (T,)). ``use_pallas=True`` with
     scheme="systematic" takes the kernel path; ``segmented`` picks
     ``run_fast_segmented`` (True, the default: timelines are always concrete
-    here) or ``run_fast`` (False)."""
-    if pmesh is not None:
-        raise NotImplementedError(f"pmesh= is {_MULTI}")
+    here) or ``run_fast`` (False).
+
+    ``pmesh``: a mesh with a ``particle`` axis shards the bank. The kernel
+    paths keep each shard on its device for the whole replay; the dense
+    path draws its noise for the whole bank from ``generator`` (so sharded
+    equals unsharded) and resamples through the distributed resample (the
+    systematic scheme) or on the joined bank (the others)."""
     if use_pallas and scheme == "systematic":
         if segmented is None or segmented:
-            return run_fast_segmented(timeline, params, cfg, n_particles, generator)
-        return run_fast(timeline, params, cfg, n_particles, generator)
+            return run_fast_segmented(timeline, params, cfg, n_particles, generator,
+                                      pmesh=pmesh)
+        return run_fast(timeline, params, cfg, n_particles, generator, pmesh=pmesh)
 
     n = cfg.particle_count if n_particles is None else n_particles
     state = init_state(n, params, _generator(generator, timeline.ticks.device))
     outs = []
     for k in range(timeline.num_ticks):
-        state, out = step(cfg, params, state, timeline.slice_tick(k), scheme, use_pallas)
+        state, out = step(cfg, params, state, timeline.slice_tick(k), scheme, use_pallas, pmesh)
         outs.append(out)
     return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 

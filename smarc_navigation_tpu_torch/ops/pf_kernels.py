@@ -2,7 +2,9 @@
 ``smarc_navigation_tpu/ops/pf_kernels.py``).
 
 ``predict_call_multi`` (K5) and ``predict_call`` (K6) launch
-``csrc/pf_predict.cu``; ``expand_gather_call`` (K7) and
+``csrc/pf_predict.cu``; ``expand_gather_call`` (K7), its window form
+``expand_gather_window_call`` (a particle shard's slots from a
+halo-extended window, ``parallel.resample_dist``) and
 ``jitter_moments_call`` (K8) launch ``csrc/pf_resample.cu``. Each wrapper
 checks its arguments on every device, takes its plain PyTorch version
 (``<name>_reference``, same signature) for CPU tensors, and launches the
@@ -26,9 +28,10 @@ Random numbers come from one counter-based generator, written once in
 ``csrc/pf_rng.cuh`` and once below in torch integer ops, keyed on
 (seed, global particle index, draw index) and never on a block id: the
 stream does not depend on the launch shape, the kernel and its plain
-version draw bit-identical uniforms, and K8's ``seed_off`` is a particle
-offset. The TPU's hardware PRNG bits cannot be reproduced, so the port is
-held to the JAX package with zero noise stds or by statistics.
+version draw bit-identical uniforms, and K8's ``seed_off`` and K5/K6's
+``idx_off`` are particle offsets (a shard passes its first global index).
+The TPU's hardware PRNG bits cannot be reproduced, so the port is held to
+the JAX package with zero noise stds or by statistics.
 """
 
 from __future__ import annotations
@@ -200,12 +203,12 @@ def finalize_moments(sums, z, roll, pitch):
 # ---------------------------------------------------------------------------
 
 def predict_call_multi_reference(parts, par16, seeds, nxy=True, nyaw=True,
-                                 nticks=None):
+                                 nticks=None, idx_off=0):
     """Plain PyTorch version of ``predict_call_multi``."""
     n, K = parts.shape[1], par16.shape[0]
     nt = K if nticks is None else int(nticks)
     x, y, z, roll_v, pitch_v, yaw = parts.unbind(0)
-    idx = torch.arange(n, dtype=torch.int64, device=parts.device)
+    idx = torch.arange(n, dtype=torch.int64, device=parts.device) + int(idx_off)
     sums = parts.new_zeros((K, N_SUMS, n_partials(n)))
     for t in range(nt):
         p = par16[t]
@@ -234,10 +237,10 @@ def predict_call_multi_reference(parts, par16, seeds, nxy=True, nyaw=True,
     return torch.stack([x, y, z, roll_v, pitch_v, yaw]), sums
 
 
-def predict_call_reference(parts, par16, seed, nxy=True, nyaw=True):
+def predict_call_reference(parts, par16, seed, nxy=True, nyaw=True, idx_off=0):
     """Plain PyTorch version of ``predict_call``."""
     out, sums = predict_call_multi_reference(parts, par16[None], seed.reshape(1),
-                                             nxy, nyaw)
+                                             nxy, nyaw, idx_off=idx_off)
     return out, sums[0]
 
 
@@ -245,13 +248,13 @@ def _predict_lib():
     lib = _build.load("pf_predict")
     fn = lib.pf_predict_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7
                        + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_predict(parts, par16, seeds, K, what):
+def _check_predict(parts, par16, seeds, K, idx_off, what):
     dev = parts.device
     n = parts.shape[1] if parts.dim() == 2 else -1
     _tensors.check(parts, "parts", (6, n), torch.float32, dev)
@@ -259,11 +262,13 @@ def _check_predict(parts, par16, seeds, K, what):
     _tensors.check(seeds, "seeds", (K,) if seeds.dim() else (), torch.int32, dev)
     if not 1 <= K <= MAX_K:
         raise ValueError(f"{what}: {K} ticks per call, the kernel takes 1..{MAX_K}")
+    if not 0 <= idx_off <= (1 << 31) - 1 - n:
+        raise ValueError(f"{what}: particle index offset {idx_off} out of range")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {dev}")
 
 
-def _predict_launch(parts, par16, seeds, K, nticks, nxy, nyaw, single):
+def _predict_launch(parts, par16, seeds, K, nticks, nxy, nyaw, single, idx_off):
     dev = parts.device
     n = parts.shape[1]
     out = torch.empty_like(parts)
@@ -271,7 +276,7 @@ def _predict_launch(parts, par16, seeds, K, nticks, nxy, nyaw, single):
     P = _tensors.ptr
     rc = _predict_lib()(
         _tensors.device_index(dev),
-        _tensors.stream(dev), n, K, nticks, int(nxy), int(nyaw), int(single),
+        _tensors.stream(dev), n, K, nticks, int(nxy), int(nyaw), int(single), int(idx_off),
         P(parts), P(par16), P(seeds), P(out), P(sums))
     _build.check(rc, "predict_call" if single else "predict_call_multi")
     return out, sums
@@ -284,19 +289,22 @@ def predict_call_multi(
     nxy: bool = True,       # x/y motion noise on (False: compiled out)
     nyaw: bool = True,      # yaw motion noise on
     nticks=None,            # real ticks this call (<= K); None = all K
+    idx_off: int = 0,       # generator index of local particle 0 (a shard's first)
 ):
     """Up to K fused predict ticks -> (new_parts, per-tick sums (K, 8, P)).
 
     Ticks [nticks, K) are not executed and their sums rows are zero. The
-    bank is read and written once for all ticks."""
+    bank is read and written once for all ticks. A particle shard passes
+    its first global index as ``idx_off``: its noise is then the unsharded
+    bank's, column for column."""
     K = par16.shape[0]
-    _check_predict(parts, par16, seeds, K, "predict_call_multi")
+    _check_predict(parts, par16, seeds, K, idx_off, "predict_call_multi")
     nt = K if nticks is None else int(nticks)
     if not 0 <= nt <= K:
         raise ValueError(f"predict_call_multi: nticks {nt} not in [0, {K}]")
     if parts.device.type == "cpu":
-        return predict_call_multi_reference(parts, par16, seeds, nxy, nyaw, nt)
-    out = _predict_launch(parts, par16, seeds, K, nt, nxy, nyaw, False)
+        return predict_call_multi_reference(parts, par16, seeds, nxy, nyaw, nt, idx_off)
+    out = _predict_launch(parts, par16, seeds, K, nt, nxy, nyaw, False, idx_off)
     predict_call_multi.launches += 1
     return out
 
@@ -310,14 +318,15 @@ def predict_call(
     seed: torch.Tensor,     # () int32
     nxy: bool = True,
     nyaw: bool = True,
+    idx_off: int = 0,       # generator index of local particle 0
 ):
     """One fused predict tick -> (new_parts, sums (8, P)): the kernel of
     ``predict_call_multi`` instantiated for K = 1, so the two share one op
     order and give bitwise equal banks from equal inputs."""
-    _check_predict(parts, par16, seed, 1, "predict_call")
+    _check_predict(parts, par16, seed, 1, idx_off, "predict_call")
     if parts.device.type == "cpu":
-        return predict_call_reference(parts, par16, seed, nxy, nyaw)
-    out, sums = _predict_launch(parts, par16, seed, 1, 1, nxy, nyaw, True)
+        return predict_call_reference(parts, par16, seed, nxy, nyaw, idx_off)
+    out, sums = _predict_launch(parts, par16, seed, 1, 1, nxy, nyaw, True, idx_off)
     predict_call.launches += 1
     return out, sums[0]
 
@@ -378,11 +387,20 @@ def expand_gather_call_reference(m_cum, parts, jitter_sd=None, seed=None):
     return jitter_moments_call_reference(out, jitter_sd, seed)
 
 
+def expand_gather_window_call_reference(m_ext, parts, out_off, n_out):
+    """Plain PyTorch version of ``expand_gather_window_call``: the
+    reference's own non-kernel branch (``resample_dist.py:152-155``),
+    ``searchsorted(side="right")`` then a clip."""
+    slots = torch.arange(n_out, dtype=m_ext.dtype, device=m_ext.device) + int(out_off)
+    anc = torch.searchsorted(m_ext, slots, right=True).clamp(max=m_ext.shape[0] - 1)
+    return parts[:, anc]
+
+
 def _resample_lib():
     lib = _build.load("pf_resample")
     fn = lib.pf_resample_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6
                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return fn
@@ -400,11 +418,12 @@ def _check_bank(parts, jitter_sd, seed, what):
         raise ValueError(f"{what} runs on CUDA or CPU tensors, not {dev}")
 
 
-def _resample_launch(m_cum, parts, jitter_sd, seed, seed_off, what):
+def _resample_launch(m_cum, parts, jitter_sd, seed, seed_off, what, out_off=0, n_out=None):
     dev = parts.device
-    rows, n = parts.shape
+    rows, n_in = parts.shape
+    n = n_in if n_out is None else n_out
     jitter = jitter_sd is not None
-    out = torch.empty_like(parts)
+    out = torch.empty((rows, n), dtype=parts.dtype, device=dev)
     sums = (torch.empty((N_SUMS, n_partials(n)), dtype=torch.float32, device=dev)
             if jitter else None)
     # K7's scratch: the ancestors of its first phase, per 1024-slot group the
@@ -416,7 +435,7 @@ def _resample_launch(m_cum, parts, jitter_sd, seed, seed_off, what):
     P = _tensors.ptr
     rc = _resample_lib()(
         _tensors.device_index(dev),
-        _tensors.stream(dev), n, rows, int(gather), int(jitter),
+        _tensors.stream(dev), n, n_in, int(out_off), rows, int(gather), int(jitter),
         P(m_cum), P(parts), P(jitter_sd), P(seed), int(seed_off), P(out), P(sums), P(anc),
         P(ready))
     _build.check(rc, what)
@@ -453,6 +472,36 @@ def expand_gather_call(
 
 
 expand_gather_call.launches = 0
+
+
+def expand_gather_window_call(
+    m_ext: torch.Tensor,    # (n_in,) int32 monotone counts, values below or past the window too
+    parts: torch.Tensor,    # (6 or 8, n_in) f32 bank columns of the window
+    out_off: int,           # the global output slot of column 0
+    n_out: int,             # output slots
+):
+    """K7's window form: output slot j of n_out takes ancestor
+    min{i : m_ext[i] > out_off + j}, clamped to n_in - 1, of the n_in
+    input columns -> (rows, n_out). A particle shard resamples its own
+    slots from a halo-extended window of the counts and the bank
+    (``parallel.resample_dist``); ``expand_gather_call`` is this form at
+    ``out_off`` 0 and n_out = n_in. No jitter: a shard jitters through
+    ``jitter_moments_call``."""
+    n_in = parts.shape[1] if parts.dim() == 2 else -1
+    _check_bank(parts, None, None, "expand_gather_window_call")
+    _tensors.check(m_ext, "m_ext", (n_in,), torch.int32, parts.device)
+    out_off, n_out = int(out_off), int(n_out)
+    if not (1 <= n_out <= 1 << 30 and 0 <= out_off <= (1 << 30)):
+        raise ValueError(f"expand_gather_window_call: n_out {n_out} / out_off {out_off}")
+    if parts.device.type == "cpu":
+        return expand_gather_window_call_reference(m_ext, parts, out_off, n_out)
+    res = _resample_launch(m_ext, parts, None, None, 0, "expand_gather_window_call",
+                           out_off, n_out)
+    expand_gather_window_call.launches += 1
+    return res
+
+
+expand_gather_window_call.launches = 0
 
 
 def jitter_moments_call(

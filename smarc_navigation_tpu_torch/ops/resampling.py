@@ -12,13 +12,18 @@ Where the JAX package takes a PRNG key, these take their uniforms instead
 (``u`` a scalar for the systematic scheme, an (N,) array for the others) or
 a ``torch.Generator`` to draw them from; the tests hand both packages the
 same uniforms. The order-pinned sums (``tree_sum``) and the blocked CDF keep
-the reference's summation trees, so a weight vector gives the reference's
-value bit for bit where the operations are elementwise.
+the reference's summation trees (the CDF's scans in the order the JAX
+package's ``jnp.cumsum`` adds on the CPU, ``prefix_sum``), so a weight
+vector gives the reference's value bit for bit where the operations are
+elementwise. ``tree_sum_shard`` and ``normalize_weights_det_shard`` are
+their shard bodies over a list of contiguous shards (``parallel.mesh``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..parallel import mesh
 
 # Block size of the deterministic two-level prefix sum (see the reference:
 # a bank split into shards that tile by the block sees the same summation
@@ -46,14 +51,43 @@ def _tiles(n: int) -> bool:
     return n % CDF_BLOCK == 0 and n > CDF_BLOCK
 
 
+# Chunk width of ``prefix_sum``'s recursive scan: the order in which the
+# JAX package's ``jnp.cumsum`` adds on the CPU (XLA rewrites the cumulative
+# reduce-window into a base-16 recursive scan)
+SCAN_BASE = 16
+
+
+def prefix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis in a pinned order: in
+    chunks of ``SCAN_BASE`` (zero-padded at the end) a sequential sum, the
+    chunk totals scanned the same way, recursively, and each chunk's
+    exclusive carry added to it. Every addition is an elementwise f32 add,
+    so the result is the same bits on the CPU and the card, and the JAX
+    package's ``jnp.cumsum`` on the CPU bit for bit (``torch.cumsum`` adds
+    in another order on each)."""
+    n = x.shape[-1]
+    if n <= SCAN_BASE:
+        out = x.clone()
+        for k in range(1, n):
+            out[..., k].add_(out[..., k - 1])
+        return out
+    m = -(-n // SCAN_BASE) * SCAN_BASE
+    if m != n:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (m - n,))], -1)
+    inner = prefix_sum(x.reshape(x.shape[:-1] + (m // SCAN_BASE, SCAN_BASE)))
+    tot = prefix_sum(inner[..., -1])
+    carry = torch.cat([tot.new_zeros(tot.shape[:-1] + (1,)), tot[..., :-1]], -1)
+    return (inner + carry[..., None]).reshape(x.shape[:-1] + (m,))[..., :n]
+
+
 def blocked_cdf(weights: torch.Tensor) -> torch.Tensor:
     """Prefix sum along the last axis with a fixed two-level tree
-    (intra-block scan + scan of block sums); a plain cumsum for banks that
-    do not tile by CDF_BLOCK."""
+    (intra-block scan + scan of block sums, each a ``prefix_sum``); one
+    ``prefix_sum`` for banks that do not tile by CDF_BLOCK."""
     if not _tiles(weights.shape[-1]):
-        return torch.cumsum(weights, -1)
-    rowcum = torch.cumsum(_blocks(weights), -1)
-    tot = torch.cumsum(rowcum[..., -1], -1)
+        return prefix_sum(weights)
+    rowcum = prefix_sum(_blocks(weights))
+    tot = prefix_sum(rowcum[..., -1])
     prefix = torch.cat([tot.new_zeros(tot.shape[:-1] + (1,)), tot[..., :-1]], -1)
     return (rowcum + prefix[..., None]).reshape(weights.shape)
 
@@ -82,12 +116,38 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return _fold_half(_fold_half(_blocks(x)))
 
 
+def tree_sum_shard(x, axis_name: str = mesh.PARTICLE_AXIS) -> list:
+    """Global ``tree_sum`` of a vector split into contiguous shards along
+    ``axis_name``: ``x`` is the list of per-shard tensors (..., ns) in shard
+    order (a shard body's stage, ``parallel.mesh``); returns the sum on each
+    shard's device. Per-row folds on each shard, an all-gather of the row
+    sums, then the same fold-in-half on every shard: bitwise
+    ``tree_sum(concat(x))`` where ns tiles by CDF_BLOCK (rows never cross a
+    shard boundary). Other shards gather the whole vector (same value, more
+    bytes), as the reference does."""
+    if x[0].shape[-1] % CDF_BLOCK:
+        return [tree_sum(v) for v in mesh.all_gather(x, axis=-1)]
+    rows = [_fold_half(_blocks(v)) for v in x]
+    return [_fold_half(v) for v in mesh.all_gather(rows, axis=-1)]
+
+
 def normalize_weights_det(logw: torch.Tensor) -> torch.Tensor:
     """exp(logw − max) + 1e-30, scaled by one ``tree_sum`` (the reference's
     add-floor-then-renormalize, ``auv_pf.py:163-166``), per bank."""
     m = torch.amax(logw, -1, keepdim=True)
     w = torch.exp(logw - m) + 1e-30
     return w / tree_sum(w)[..., None]
+
+
+def normalize_weights_det_shard(logw, axis_name: str = mesh.PARTICLE_AXIS) -> list:
+    """Shard body of ``normalize_weights_det`` over log-weights split into
+    contiguous shards (``logw`` the list of (..., ns) shards in order):
+    ``pmax`` is exactly associative and the sum goes through
+    ``tree_sum_shard``, so each returned weight shard is BITWISE the same
+    slice of the unsharded ``normalize_weights_det``, at any shard count."""
+    ms = mesh.pmax([torch.amax(v, -1, keepdim=True) for v in logw])
+    ws = [torch.exp(v - m) + 1e-30 for v, m in zip(logw, ms)]
+    return [w / t[..., None] for w, t in zip(ws, tree_sum_shard(ws, axis_name))]
 
 
 def systematic_counts(weights: torch.Tensor, u) -> torch.Tensor:
@@ -101,6 +161,10 @@ def systematic_counts(weights: torch.Tensor, u) -> torch.Tensor:
     cdf = blocked_cdf(weights).clone()
     cdf[..., -1].fill_(1.0)   # guard round-off (the reference does the same)
     m_cum = torch.clamp(torch.ceil(n * cdf - u[..., None]), 0, n).to(torch.int32)
+    # ... and the count it guards: n·1 - u rounds to n - 1 in f32 where 1 - u
+    # is under half the f32 spacing below n (u > 1 - 2^-5 at n = 2^20), which
+    # would leave slot n - 1 without an owner
+    m_cum[..., -1].fill_(n)
     if not _tiles(n):
         return torch.cummax(m_cum, -1).values
     rows = torch.cummax(_blocks(m_cum), -1).values

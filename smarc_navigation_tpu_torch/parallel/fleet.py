@@ -17,9 +17,16 @@
   loop as a cached CUDA graph (``utils.graphs``).
 * ``batch_timelines`` and the combined PF + SLAM mission ``run_combined``.
 
-Mission sharding (``device_mesh=``) and the particle-sharded PF
-(``pf_pmesh``) are multi-device work and raise ``NotImplementedError``
-(ROADMAP.md Queue 1 item 12).
+Mission sharding (``device_mesh=``, a ``parallel.mesh.Mesh``): the
+missions split over the mesh's ``mission`` axis and each mission shard
+replays its missions on the first device of its mesh row; in
+``run_fleet`` each bank's particles split over the ``particle`` axis too:
+the predict runs per particle shard (draws keyed on the global particle
+index) and the GPS update through ``pf.fleet_update_resample(pmesh=...)``
+(the distributed resample where the shards tile by CDF_BLOCK), which forces
+the systematic scheme, as the reference. Outputs are joined on the caller's
+device, bitwise the unsharded runs' (the particle-sharded fleet's against
+``pf_scheme="systematic"``).
 """
 
 from __future__ import annotations
@@ -35,8 +42,7 @@ from ..models import particle_filter as pf
 from ..ops import raycast
 from ..ops.timeline import Timeline
 from ..utils import graphs
-
-_MULTI = "multi-device work, not in the port yet (ROADMAP.md Queue 1 item 12)"
+from . import mesh as mesh_lib
 
 
 def _structure(tl: Timeline):
@@ -95,14 +101,36 @@ def init_fleet(
     return FleetState(slam=slam_b, pf=pf.fleet_init(batch, n_particles, pf_params, seed))
 
 
+def _predict_sharded(state: pf.FleetPFState, odom, ticks, fresh, params: pf.PFParams, pmesh):
+    """``pf.fleet_predict`` per particle shard of ``pmesh``'s first row
+    (each shard's draws keyed on its global particle indices), the banks
+    joined back on their device: bitwise the unsharded predict."""
+    row = pmesh.row(0)
+    P_ = row.shape[mesh_lib.PARTICLE_AXIS]
+    ns = state.particles.shape[-1] // P_
+    bank = mesh_lib.particle_sharding(row, 3, 2)
+    rest = mesh_lib.replicate((state.key, state.t_prev, odom, ticks, fresh, params), row)
+    out = [pf.fleet_predict(pf.FleetPFState(p, key, t_prev), o, t, f, prm, idx_off=i * ns)
+           for i, (p, (key, t_prev, o, t, f, prm)) in enumerate(zip(bank.shard(state.particles)[0],
+                                                                     rest))]
+    dev = state.particles.device
+    return pf.FleetPFState(particles=bank.join([[o.particles for o in out]], dev),
+                           key=out[0].key.to(dev), t_prev=out[0].t_prev.to(dev))
+
+
 def _pf_tick(params: pf.PFParams, state: pf.FleetPFState, odom, fresh, ticks, gps_xy, do_upd,
-             scheme: str):
+             scheme: str, pmesh=None):
     """One PF tick of every mission: the predict where the odometry is
     fresh, the GPS update and resample where a fix arrives off the dive,
     then the estimate; per mission the reference's ``pf.step``, for the
-    whole fleet at once and with no host sync."""
-    pred = pf.fleet_predict(state, odom, ticks, fresh, params)
-    upd = pf.fleet_update_resample(pred, gps_xy, params, scheme=scheme)
+    whole fleet at once. With ``pmesh`` the predict runs per particle shard
+    and the update through the fleet's distributed resample. No host sync,
+    but for that resample's fit check."""
+    if pmesh is None:
+        pred = pf.fleet_predict(state, odom, ticks, fresh, params)
+    else:
+        pred = _predict_sharded(state, odom, ticks, fresh, params, pmesh)
+    upd = pf.fleet_update_resample(pred, gps_xy, params, pmesh=pmesh, scheme=scheme)
     parts = torch.where(do_upd[:, None, None], upd.particles, pred.particles)
     new = pf.FleetPFState(particles=parts, key=torch.where(do_upd, upd.key, pred.key),
                           t_prev=pred.t_prev)
@@ -133,9 +161,12 @@ def fleet_step(
     ``ekf_slam.run_fleet`` (the batched predict, then K1 + K2 per event
     sensor) and the PF tick of every bank at once (``pf_scheme`` is the
     resampler; ``"systematic"`` is the reference's fleet-wide
-    ``fleet_update_resample``, the others its per-mission ``pf.step``)."""
-    if pf_pmesh is not None:
-        raise NotImplementedError(f"pf_pmesh is {_MULTI}")
+    ``fleet_update_resample``, the others its per-mission ``pf.step``).
+    ``pf_pmesh``: a mesh whose particle axis shards every bank (the
+    systematic scheme only)."""
+    if pf_pmesh is not None and pf_scheme != "systematic":
+        raise ValueError("particle-axis sharding (pf_pmesh) requires the systematic scheme "
+                         "(the distributed resample implements it)")
     odom = tick_batch.channels["odom"]
     names = tuple(n for n in ("mbes", "fls") if n in tick_batch.events)
     consts = {n: slam.pass_consts(slam_params, slam_cfg, slam._SENSORS[n]) for n in names}
@@ -146,7 +177,8 @@ def fleet_step(
         state.slam, band, slam._odom_pose(odom.value), odom.valid, events, slam_params, slam_cfg,
         consts, slam.a8_consts(slam_params.R, slam_params.R.dtype))
     sl_out["sigma_diag6"] = torch.diagonal(sl.Sigma[:, 0:6, 0:6], dim1=1, dim2=2)
-    pf2, pf_out = _pf_tick(pf_params, state.pf, *_pf_tick_inputs(tick_batch), pf_scheme)
+    pf2, pf_out = _pf_tick(pf_params, state.pf, *_pf_tick_inputs(tick_batch), pf_scheme,
+                           pf_pmesh)
     return FleetState(slam=sl, pf=pf2), {"slam": sl_out, "pf": pf_out}
 
 
@@ -163,10 +195,11 @@ def _fleet_inputs(timelines: Timeline, slam_cfg: EKFSlamConfig, slam_params: sla
     return inp, names
 
 
-def _fleet_loop(inp: dict, slam_cfg: EKFSlamConfig, names: tuple, scheme: str):
+def _fleet_loop(inp: dict, slam_cfg: EKFSlamConfig, names: tuple, scheme: str, pmesh=None):
     """``run_fleet``'s tick loop on ``_fleet_inputs`` -> (final FleetState,
-    outputs stacked (T, B, ...)). Capture-safe: nothing in it syncs with
-    the host or builds a tensor from host data."""
+    outputs stacked (T, B, ...)). Capture-safe where the PF takes no
+    distributed resample: nothing in it then syncs with the host or builds
+    a tensor from host data."""
     params, s0, consts, c12 = slam._loop_setup(inp, names)
     pfp = pf.PFParams(*(inp["pfp_" + k] for k in pf.PFParams._fields))
     T, B = inp["valid"].shape
@@ -180,7 +213,8 @@ def _fleet_loop(inp: dict, slam_cfg: EKFSlamConfig, names: tuple, scheme: str):
                                            consts, c12)
         sl_out["sigma_diag6"] = torch.diagonal(sl.Sigma[:, 0:6, 0:6], dim1=1, dim2=2)
         pfs, pf_out = _pf_tick(pfp, pfs, *(inp["pf_" + k][t] for k in
-                                           ("odom", "fresh", "ticks", "gps", "upd")), scheme)
+                                           ("odom", "fresh", "ticks", "gps", "upd")), scheme,
+                              pmesh)
         outs.append({"slam": sl_out, "pf": pf_out})
     stacked = {part: {k: torch.stack([o[part][k] for o in outs]) for k in outs[0][part]}
                for part in outs[0]}
@@ -206,17 +240,56 @@ def run_fleet(
     On CUDA tensors the tick loop runs as a CUDA graph cached per
     configuration, scheme and shapes (``utils.graphs``; the reference's
     jitted ``lax.scan``); ``graph=False`` runs it eagerly. The initial
-    banks are drawn before the loop, from ``seed``."""
-    if device_mesh is not None:
-        raise NotImplementedError(f"device_mesh= is {_MULTI}")
+    banks are drawn before the loop, from ``seed``.
+
+    ``device_mesh``: missions split over its ``mission`` axis, one replay
+    per mission shard on the first device of its row. Where its
+    ``particle`` axis is wider than 1, each bank's particles split over it
+    and the scheme defaults to (and must be) systematic, as the
+    reference's. A mission shard's loop is graphed where its particle
+    shards share one card and the update takes no distributed resample
+    (whose fit check syncs with the host), else eager."""
     B = timelines.ticks.shape[0]
-    scheme = "residual" if pf_scheme is None else pf_scheme
+    P_ = 1 if device_mesh is None else device_mesh.shape[mesh_lib.PARTICLE_AXIS]
+    if pf_scheme is None:
+        pf_scheme = "systematic" if P_ > 1 else "residual"
+    if P_ > 1 and pf_scheme != "systematic":
+        raise ValueError("particle-axis sharding requires the systematic scheme")
     pf0 = pf.fleet_init(B, n_particles, pf_params, seed)
+    if device_mesh is None:
+        return _run_fleet_shard(timelines, slam_cfg, slam_params, pf_params, pf0, pf_scheme,
+                                None, graph)
+    M = device_mesh.shape[mesh_lib.MISSION_AXIS]
+    if B % M:
+        raise ValueError(f"fleet size {B} not divisible by mission axis {M}")
+    if n_particles % P_:
+        raise ValueError(f"particle count {n_particles} not divisible by particle axis {P_}")
+    res = []
+    for m, (tl, p0) in enumerate(zip(mesh_lib.shard_missions(timelines, device_mesh),
+                                     mesh_lib.shard_missions(pf0, device_mesh))):
+        d = device_mesh.devices[m][0]
+        sp, pp = mesh_lib.tree_map(lambda x: x.to(d), (slam_params, pf_params))
+        res.append(_run_fleet_shard(tl, slam_cfg, sp, pp, p0, pf_scheme,
+                                    device_mesh.row(m) if P_ > 1 else None, graph))
+    dev = timelines.ticks.device
+    return (mesh_lib.join_missions([r[0] for r in res], dev, 0),
+            mesh_lib.join_missions([r[1] for r in res], dev, 1))
+
+
+def _run_fleet_shard(timelines, slam_cfg, slam_params, pf_params, pf0, scheme, pmesh, graph):
+    """``run_fleet``'s replay of one set of missions from its initial banks
+    ``pf0``, the banks' particles split over ``pmesh`` (a 1 x P mesh) or
+    whole (None)."""
     inp, names = _fleet_inputs(timelines, slam_cfg, slam_params, pf_params, pf0)
-    if graph and inp["valid"].device.type == "cuda":
-        key = ("fleet.run_fleet", slam_cfg, names, scheme)
-        return graphs.run(key, lambda x: _fleet_loop(x, slam_cfg, names, scheme), inp)
-    return _fleet_loop(inp, slam_cfg, names, scheme)
+    dev = inp["valid"].device
+    capture_safe = pmesh is None or (
+        set(pmesh.devices[0]) == {dev}
+        and not pf._uses_dist_resample(pmesh, pf0.particles.shape[-1]))
+    if graph and dev.type == "cuda" and capture_safe:
+        P_ = 1 if pmesh is None else pmesh.shape[mesh_lib.PARTICLE_AXIS]
+        key = ("fleet.run_fleet", slam_cfg, names, scheme, P_)
+        return graphs.run(key, lambda x: _fleet_loop(x, slam_cfg, names, scheme, pmesh), inp)
+    return _fleet_loop(inp, slam_cfg, names, scheme, pmesh)
 
 
 # ---------------------------------------------------------------------------
@@ -348,10 +421,25 @@ def run_raycast_fleet(
     versions; False the per-mission ``predict`` + ``data_associate_update``.
     On CUDA tensors the kernel path's tick loop runs as a CUDA graph cached
     per configuration, MBES spec and shapes; ``graph=False`` runs it
-    eagerly."""
-    if device_mesh is not None:
-        raise NotImplementedError(f"device_mesh= is {_MULTI}")
+    eagerly.
+
+    ``device_mesh``: the missions split over its ``mission`` axis, each
+    mission shard replayed on the first device of its mesh row (no
+    collectives: the missions are independent), the results joined on the
+    caller's device: bitwise the unsharded run."""
     spec = raycast.MBESSpec() if mbes_spec is None else mbes_spec
+    if device_mesh is not None:
+        M = device_mesh.shape[mesh_lib.MISSION_AXIS]
+        if gt_tracks.shape[0] % M:
+            raise ValueError(f"fleet size {gt_tracks.shape[0]} not divisible by "
+                             f"mission axis {M}")
+        res = []
+        for m, (gt, lms, lmm) in enumerate(mesh_lib.shard_missions(
+                (gt_tracks, landmark_sets, lm_masks), device_mesh)):
+            prm = mesh_lib.tree_map(lambda x, d=device_mesh.devices[m][0]: x.to(d), slam_params)
+            res.append(run_raycast_fleet(gt, lms, lmm, slam_cfg, prm, spec,
+                                         use_da_kernel=use_da_kernel, graph=graph))
+        return mesh_lib.join_missions(res, gt_tracks.device, 0)
     on_card = gt_tracks.device.type == "cuda"
     if use_da_kernel is None:
         use_da_kernel = on_card

@@ -197,10 +197,13 @@ def test_run_fleet_invalid_odometry_is_a_noop():
 
 
 def test_unported_modes_raise():
-    """Mission sharding is the one fleet option not ported yet; an unknown
-    covariance mode is refused."""
+    """A mission mesh that does not split the fleet evenly is refused (the
+    reference's check), and so is an unknown covariance mode."""
+    from smarc_navigation_tpu_torch.parallel import mesh
+
     tl = fleet.batch_timelines([ptl.build_timeline(**_raw_mission(1, _port_params()))])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.run_fleet(tl.to("cpu"), _port_params(), CFG, device_mesh=object())
+    with pytest.raises(ValueError, match="not divisible by mission axis"):
+        S.run_fleet(tl.to("cpu"), _port_params(), CFG,
+                    device_mesh=mesh.make_mesh(mission=2, devices=[torch.device("cpu")] * 2))
     with pytest.raises(ValueError, match="update_mode"):
         S.run_fleet(tl.to("cpu"), _port_params(), CFG, update_mode="lowrank")

@@ -115,17 +115,24 @@ def test_raycast_fleet_default_on_cpu_is_the_dense_path():
 
 
 def test_multi_device_arguments_raise():
+    """The multi-device arguments refuse what the reference refuses: a
+    mission mesh that does not split the fleet, and particle sharding with
+    another scheme than the systematic one."""
+    from smarc_navigation_tpu_torch.parallel import mesh
+
+    cpu2 = [torch.device("cpu")] * 2
     gt, lms, lmm = (torch.as_tensor(x) for x in _raycast_case(B=1, T=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(ValueError, match="not divisible by mission axis"):
         fleet.run_raycast_fleet(gt, lms, lmm, RC_CFG, S.make_params(RC_CFG, device="cpu"),
-                                device_mesh=object())
+                                device_mesh=mesh.make_mesh(mission=2, devices=cpu2))
     params = pf.make_params(PFConfig(**ZERO_PF), device="cpu")
     state = fleet.init_fleet(2, 8, FL_CFG, params, PFConfig(**ZERO_PF))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        pf.fleet_update_resample(state.pf, torch.zeros(2, 2), params, pmesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    pm = mesh.make_mesh(particle=2, devices=cpu2)
+    with pytest.raises(ValueError, match="systematic"):
+        pf.fleet_update_resample(state.pf, torch.zeros(2, 2), params, pmesh=pm, scheme="residual")
+    with pytest.raises(ValueError, match="systematic"):
         fleet.fleet_step(FL_CFG, None, PFConfig(**ZERO_PF), params, state, None,
-                         pf_pmesh=object())
+                         pf_pmesh=pm)
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,11 @@ timeline construction, fleet batching, the PF, combined, localization,
 host path, the sensor glue, observability's numpy, the aux-DR track)
 produces arrays bitwise equal to the reference package's (the 15-state
 timeline's attitude and control columns, computed in float32 by each
-framework, to 1e-6). The host and IO layer and the mission CLI run with
-JAX blocked too, and the native runtime's C++ source is the reference's,
-byte for byte."""
+framework, to 1e-6). The host and IO layer, the mission CLI and the
+multi-device layer (the mesh, the distributed resample, the
+particle-sharded PF and the mission-sharded SLAM fleet) run with JAX
+blocked too, and the native runtime's C++ source is the reference's, byte
+for byte."""
 
 import dataclasses
 import os
@@ -89,6 +91,19 @@ ff, fo = fleet.run_fleet(ftl, cfg, ekf_slam.make_params(cfg, device="cpu"), PFCo
                          pf.make_params(PFConfig(particle_count=16), device="cpu"), 16,
                          pf_scheme="systematic")
 assert fo["pf"]["mean"].shape == (3, 2, 6) and bool(torch.isfinite(ff.pf.particles).all())
+from smarc_navigation_tpu_torch.ops import resampling
+from smarc_navigation_tpu_torch.parallel import mesh, resample_dist
+pm = mesh.make_mesh(mission=2, particle=2, devices=[torch.device("cpu")] * 4)
+pr, wr = torch.randn(6, 8192), torch.rand(8192)
+wr = wr / wr.sum()
+assert torch.equal(resample_dist.systematic_resample_gather_dist(pr, wr, 0.3, pm),
+                   pr[:, resampling.systematic_resample(0.3, wr).long()])
+p4 = PFConfig(particle_count=4096)
+g0, o0 = pf.run_fast_segmented(tl_p.to("cpu"), pf.make_params(p4, device="cpu"), p4)
+g1, o1 = pf.run_fast_segmented(tl_p.to("cpu"), pf.make_params(p4, device="cpu"), p4, pmesh=pm)
+assert torch.equal(g0.particles, g1.particles) and torch.equal(o0["mean"], o1["mean"])
+fm1, om1 = ekf_slam.run_fleet(tl, ekf_slam.make_params(cfg, device="cpu"), cfg, device_mesh=pm)
+assert torch.equal(om1["mu"], out["mu"])
 loaded = sorted(m for m, v in sys.modules.items() if v is not None and
                 m.split(".")[0] in ("jax", "jaxlib", "flax", "smarc_navigation_tpu"))
 assert not loaded, loaded

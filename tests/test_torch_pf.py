@@ -211,8 +211,16 @@ def test_step_matches_jax_on_one_tick(jx):
 
 
 def test_sharded_paths_raise():
+    """The particle-sharded kernel paths refuse a bank whose shards do not
+    tile by CDF_BLOCK (the distributed resample's requirement), before any
+    work; the public entry routes there."""
+    from smarc_navigation_tpu_torch.parallel import mesh
+
     tl = P.pf_timeline(sim.simulate(sim.MissionSpec(duration_s=2.0))).to("cpu")
-    tp = P.make_params(device="cpu")
-    for fn in (P.run, P.run_fast, P.run_fast_segmented):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(tl, tp, pmesh=object())
+    cfg = PFConfig(particle_count=3 * 1024)
+    tp = P.make_params(cfg, device="cpu")
+    pm = mesh.make_mesh(particle=2, devices=[torch.device("cpu")] * 2)
+    for fn, kw in ((P.run, dict(scheme="systematic", use_pallas=True)), (P.run_fast, {}),
+                   (P.run_fast_segmented, {})):
+        with pytest.raises(ValueError, match="tile by 2048"):
+            fn(tl, tp, cfg, pmesh=pm, **kw)

@@ -7,9 +7,10 @@ Tolerances and why:
 - ``normalize_weights_det`` is bitwise where both frameworks' f32 ``exp``
   agree (XLA's and torch's differ by one ulp on ~9% of inputs), and within
   4 ulp otherwise; the sum and divide after the exp are order-pinned.
-- ``systematic_counts`` may differ by ±1 at stratum boundaries: the CDF's
-  cumsum rounds in a backend-specific order (ROADMAP Queue 3). Observed: no
-  flip at these sizes.
+- ``systematic_counts``: the blocked CDF's scans add in the order of the
+  JAX package's ``jnp.cumsum`` on the CPU (``prefix_sum``), so the counts
+  are bitwise where the weights are (``tests/test_torch_resample_dist.py``);
+  the checks here allow ±1 at a stratum boundary all the same.
 - ancestors from the same counts (``_expand_blocks``) and the schemes fed
   the same uniforms are exact, up to those boundary flips.
 """

@@ -7,7 +7,10 @@ package bind the same way in the port: ``"device"`` solves each DA table with
 the exact torch JV, anything else on the host with scipy
 (``assignment.hungarian_host``), as the reference's host solver does. Each
 positional call runs in both packages on the same small MBES mission (the
-JAX side on the CPU, where its host solver's ``pure_callback`` runs).
+JAX side on the CPU, where its host solver's ``pure_callback`` runs). The
+public signatures of the SLAM modules, and those of the multi-device layer
+(``parallel/mesh.py``, ``parallel/resample_dist.py`` and the functions that
+take ``pmesh=`` / ``device_mesh=``), are compared by AST.
 
 Tolerances: associations (matched, n_active) are exact; poses agree to
 1e-3 and Σ's pose diagonal to 1e-3 relative, the bounds of
@@ -170,6 +173,25 @@ ADDED = {
 }
 
 
+# the multi-device layer: whole modules, and the functions that take a mesh
+MESH_FUNCTIONS = {
+    "parallel/mesh.py": None,
+    "parallel/resample_dist.py": None,
+    "models/particle_filter.py": ("fleet_update_resample", "update_resample", "step",
+                                  "run_fast_segmented", "run_fast", "run"),
+    "parallel/fleet.py": ("fleet_step", "run_fleet", "run_raycast_fleet"),
+}
+ADDED.update({
+    ("models/particle_filter.py", "fleet_update_resample"): ["u", "noise", "scheme"],
+    ("models/particle_filter.py", "update_resample"): ["u", "noise"],
+    ("parallel/fleet.py", "run_fleet"): ["graph"],
+    ("parallel/fleet.py", "run_raycast_fleet"): ["graph"],
+})
+# the port takes a torch.Generator, or the systematic uniform itself, where
+# the reference takes a JAX PRNG key, in the key's place
+RENAMED = {"key": ("generator", "u"), "keys": ("u",)}
+
+
 def _signatures(path: Path) -> dict:
     """{public function: [parameter names in order]} of a module's top level."""
     out = {}
@@ -193,3 +215,20 @@ def test_public_signatures_match_the_reference(module):
         added = ADDED.get((module, name), [])
         # the additions come after every parameter of the reference
         assert port[name] == ref[name] + added, (name, port[name], ref[name])
+
+
+@pytest.mark.parametrize("module", sorted(MESH_FUNCTIONS))
+def test_mesh_signatures_match_the_reference(module):
+    """The multi-device entry points keep the reference's parameters in the
+    reference's order (a key's place taken by the port's generator or
+    uniform), the port's additions after them."""
+    ref = _signatures(REPO / "smarc_navigation_tpu" / module)
+    port = _signatures(REPO / "smarc_navigation_tpu_torch" / module)
+    names = MESH_FUNCTIONS[module] or sorted(ref)
+    for name in names:
+        assert name in port, (module, name)
+        want = ref[name] + ADDED.get((module, name), [])
+        got = port[name]
+        assert len(got) == len(want), (name, got, want)
+        for g, w in zip(got, want):
+            assert g == w or g in RENAMED.get(w, ()), (name, got, want)
