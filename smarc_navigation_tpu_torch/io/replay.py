@@ -181,7 +181,10 @@ def profile_replay(step_fn, state0, timeline: Timeline, trace_dir: str):
     """A replay under ``torch.profiler`` (host and, where the timeline is on
     a CUDA device, device activity); the Chrome trace is written to
     ``trace_dir/replay_trace.json`` (SURVEY §5 'tracing/profiling': the
-    reference had only ROS_INFO prints)."""
+    reference had only ROS_INFO prints). It carries the port's spans
+    (``utils/trace``) as host ops: for ``ekf_slam.step``, ``slam.step`` per
+    tick and inside it ``slam.predict``, ``slam.da_stage``, ``slam.jv`` and
+    ``slam.commit``."""
     from torch.profiler import ProfilerActivity, profile
 
     on_cuda = timeline.ticks.is_cuda

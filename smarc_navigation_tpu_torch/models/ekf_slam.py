@@ -40,7 +40,7 @@ from ..configs import EKFSlamConfig
 from ..ops import assignment, slam_da_kernels, slam_kernels
 from ..ops.timeline import build_timeline
 from ..parallel import mesh as mesh_lib
-from ..utils import graphs
+from ..utils import graphs, trace
 from ..utils.geometry import Transform, rotmat_from_rpy, rpy_from_quat, wrap_angle
 from ..utils.linalg import chi2_quantile, inv_small
 
@@ -345,13 +345,16 @@ def data_associate_update(
     ``solver``: ``"device"`` solves the assignment with the exact torch JV
     (``assignment.hungarian``); any other value on the host with scipy
     (``assignment.hungarian_host``), as the reference's host solver."""
-    cost, staged = da_stage(state, z, z_mask, params, cfg, sensor)
-    if solver == "device":
-        col_to_row = assignment.hungarian(cost)
-    else:
-        col_to_row = assignment.hungarian_host(cost)
-    return da_commit(state, col_to_row, staged, z, z_mask, params, cfg,
-                     sensor, update_mode)
+    with trace.span("slam.da_stage"):
+        cost, staged = da_stage(state, z, z_mask, params, cfg, sensor)
+    with trace.span("slam.jv"):
+        if solver == "device":
+            col_to_row = assignment.hungarian(cost)
+        else:
+            col_to_row = assignment.hungarian_host(cost)
+    with trace.span("slam.commit"):
+        return da_commit(state, col_to_row, staged, z, z_mask, params, cfg,
+                         sensor, update_mode)
 
 
 def select_updates(col_to_row, z_mask, n_active, L: int):
@@ -525,35 +528,37 @@ def step(
     """One SLAM tick (``ekf_slam.cpp:296-350``): consume latest odometry,
     then run a DA pass per sensor whose burst is non-empty (a host-side
     branch: one sync per sensor per tick)."""
-    odom = tick.channels["odom"]
-    pred = predict(state, _odom_pose(odom.value), params)
+    with trace.span("slam.step"):
+        odom = tick.channels["odom"]
+        with trace.span("slam.predict"):
+            pred = predict(state, _odom_pose(odom.value), params)
 
-    def run_pass(st, ev, sensor):
-        if bool(ev.mask.any()):
-            return data_associate_update(st, ev.value, ev.mask, params, cfg,
-                                         sensor, solver, update_mode)
-        return st, torch.full(ev.mask.shape, -1, dtype=torch.int32,
-                              device=ev.mask.device)
+        def run_pass(st, ev, sensor):
+            if bool(ev.mask.any()):
+                return data_associate_update(st, ev.value, ev.mask, params, cfg,
+                                             sensor, solver, update_mode)
+            return st, torch.full(ev.mask.shape, -1, dtype=torch.int32,
+                                  device=ev.mask.device)
 
-    st = pred
-    matched_mbes = matched_fls = None
-    if "mbes" in tick.events:
-        st, matched_mbes = run_pass(st, tick.events["mbes"], MBES)
-    if "fls" in tick.events:
-        st, matched_fls = run_pass(st, tick.events["fls"], FLS)
+        st = pred
+        matched_mbes = matched_fls = None
+        if "mbes" in tick.events:
+            st, matched_mbes = run_pass(st, tick.events["mbes"], MBES)
+        if "fls" in tick.events:
+            st, matched_fls = run_pass(st, tick.events["fls"], FLS)
 
-    # gate: without odometry the reference rebroadcasts the last pose
-    st = SlamState(*(torch.where(odom.valid, new, old) for new, old in zip(st, state)))
-    out = {
-        "mu": st.mu[0:6],
-        "sigma_diag6": torch.diagonal(st.Sigma[0:6, 0:6]),
-        "n_active": st.n_active,
-    }
-    if matched_mbes is not None:
-        out["matched_mbes"] = matched_mbes
-    if matched_fls is not None:
-        out["matched_fls"] = matched_fls
-    return st, out
+        # gate: without odometry the reference rebroadcasts the last pose
+        st = SlamState(*(torch.where(odom.valid, new, old) for new, old in zip(st, state)))
+        out = {
+            "mu": st.mu[0:6],
+            "sigma_diag6": torch.diagonal(st.Sigma[0:6, 0:6]),
+            "n_active": st.n_active,
+        }
+        if matched_mbes is not None:
+            out["matched_mbes"] = matched_mbes
+        if matched_fls is not None:
+            out["matched_fls"] = matched_fls
+        return st, out
 
 
 def _stack_outputs(outs: list) -> dict:
@@ -854,7 +859,8 @@ def run_fleet(
     if update_mode not in ("auto", "full"):
         raise ValueError(f"unknown update_mode {update_mode!r}")
 
-    inp, names = _loop_inputs(batched_timeline, params, cfg)
+    with trace.span("slam.fleet.stage"):
+        inp, names = _loop_inputs(batched_timeline, params, cfg)
     if graph and inp["valid"].device.type == "cuda":
         key = ("ekf_slam.run_fleet", cfg, names, streamed)
         return graphs.run(key, lambda x: _full_loop(x, cfg, names, streamed), inp)

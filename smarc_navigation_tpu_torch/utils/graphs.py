@@ -15,7 +15,9 @@ result is a pytree (tuple, dict, NamedTuple) of tensors.
   nothing re-runs the eager loop in its place.
 - Every later call with the key copies its inputs into the entry's static
   buffers, replays the graph once and returns clones of the static outputs,
-  so no call aliases or overwrites another's results.
+  so no call aliases or overwrites another's results. Under a profiler the
+  three record the spans ``graphs.copy_in``, ``graphs.replay`` and
+  ``graphs.clone_out`` (``utils/trace``).
 
 The cache key is ``key`` plus the name, shape, dtype and device of every
 input. ``key`` must hold everything else the capture bakes in: the
@@ -40,6 +42,8 @@ from collections import OrderedDict
 
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
+
+from . import trace
 
 MAX_ENTRIES = 8
 
@@ -92,12 +96,15 @@ def run(key, body, inputs: dict):
         if entry is None:
             return _capture(full_key, body, inputs)
         _cache.move_to_end(full_key)
-        for k, v in inputs.items():
-            entry.inputs[k].copy_(v)
-        entry.graph.replay()
+        with trace.span("graphs.copy_in"):
+            for k, v in inputs.items():
+                entry.inputs[k].copy_(v)
+        with trace.span("graphs.replay"):
+            entry.graph.replay()
         for f, n in entry.launches:
             f.launches += n
-        return tree_map(torch.clone, entry.outputs)
+        with trace.span("graphs.clone_out"):
+            return tree_map(torch.clone, entry.outputs)
 
 
 def _capture(full_key, body, inputs: dict):
