@@ -51,7 +51,7 @@ Phases (any failure exits nonzero; nothing is caught):
   5. the headline replay (``slam_fleet_timelines(combined_slam_cfg(), 60, 128)``
      through ``run_fleet``), timed with CUDA events; K1, K2 (phase 1) and
      K12 must each have launched once per tick;
-  6. one single-mission ``step`` through K3 (phase 1 + K12);
+  6. one single-mission ``step`` on the card: K1 + K2 (phase 1 + K12) at B=1;
  5b. the L=256 full replay (``slam_fleet_timelines(cfg256, 60, 32)``, T=601):
      K1, K2 (phase 1) and K12 once per tick; then the streamed and the
      one-kernel K2 schedule over the same first ticks, each on its own graph
@@ -139,14 +139,15 @@ Phases (any failure exits nonzero; nothing is caught):
      scipy's optimum on random tables and equals ``assignment.hungarian``
      on tables with exact ties; its binner is bitwise the Python loop on the
      sample log's MBES stream; (b) ``run.main(["replay", "--log",
-     "data/sample_mission.npz"])`` (T=901, L=64, M=8): K3 (phase 1 + K12)
-     once per tick with an MBES burst, counted from the log's timeline;
+     "data/sample_mission.npz"])`` (T=901, L=64, M=8): K1 and K2 (phase 1
+     + K12) once per tick with an MBES burst, counted from the log's
+     timeline, K3 never;
      ``ekf_slam.run`` of the log on the card against the CPU over its
      first 30 s (matched_mbes exact, poses within POSE_TOL), and the same
      command with ``--device cpu`` on the log's first 30 s against the
      report of the card run's first 30 s (n_landmarks_mapped exact, pose
      metrics within POSE_TOL); (c) ``demo --duration
-     60`` (K3 launched), and ``demo --duration 30`` on the card and the
+     60`` (K1 and K2 launched), and ``demo --duration 30`` on the card and the
      CPU (n_landmarks_mapped exact, final and mean error within POSE_TOL);
      (d) ``pf --particles 1048576 --pallas``: K5 once per segment and K7
      once per GPS update in each of the CLI's two replays, xy_err_mean_m
@@ -155,7 +156,8 @@ Phases (any failure exits nonzero; nothing is caught):
      (chunks of 128, a checkpoint after each) bitwise ``ekf_slam.run`` on
      the card (final state and outputs), a resume from the last checkpoint
      but one bitwise the tail, a NaN-injecting step raising
-     ``ReplayError``, and ``profile_replay``'s trace naming K3's kernels.
+     ``ReplayError``, and ``profile_replay``'s trace naming K1's and K2's
+     kernels.
  21. the multi-device layer (``parallel/mesh.py``, a grid of devices driven
      from this process), every mesh's shards on the one card: (a) K7's
      window form (``expand_gather_window_call``) at a shard's shape of the
@@ -200,13 +202,13 @@ entry also holds its FLS form, one mission, K11 on its tables, the L=256
 forms, the raycast fleet's B=1024 and its launches on each main path (the
 combined mission's, the raycast fleet's and the SLAM + PF fleet's too),
 K2's and K12's their B=1024 times and launches by path, K4's its time at
-M=16, K3's and K12's their launches on the CLI's replay and demo and the
-chunked replay, K5's and K7's on the CLI's pf;
+M=16, K1's, K2's, K3's (none since the step runs K1 + K2) and K12's their
+launches on the CLI's replay and demo and the chunked replay, K5's and
+K7's on the CLI's pf;
 ``library_ms`` (K7's ``torch.repeat_interleave``, K12's ``torch.baddbmm``) is the device time of all
 the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
-5c, 9, 9b, 10, 14, 15, 17, 19 and 21b-d) and read just after it (phase 5's after
-phase 6). K8 and K7's window form take their launches from the
+5c, 9, 9b, 10, 14, 15, 17, 19 and 21b-d) and read just after it. K8 and K7's window form take their launches from the
 particle-sharded PF replay (21b), their only caller; K11 has none on any
 path (the reference calls it from tests only; its JV core runs inside
 K1), so its count is 0. ``bound_ms`` is the largest of the bytes
@@ -2029,7 +2031,7 @@ def close_reports(card, cpu, keys, what):
 
 def cli_phase(dev):
     """Phase 20: the mission CLI on the card (see the module docstring).
-    Returns {path: launches} of K3, K12, K5 and K7."""
+    Returns {path: launches} of K1, K2, K3, K12, K5 and K7."""
     import os
     import shutil
     import tempfile
@@ -2043,12 +2045,13 @@ def cli_phase(dev):
     from smarc_navigation_tpu_torch.models import particle_filter as PF
     from smarc_navigation_tpu_torch.ops import assignment
     from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
     from smarc_navigation_tpu_torch.ops import slam_kernels as K2
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
-    counters = [K2.sequential_update, K2.symmetric_downdate, PK.predict_call_multi,
-                PK.expand_gather_call]
+    counters = [K1.da_lanes, K2.sequential_update_fleet, K2.sequential_update,
+                K2.symmetric_downdate, PK.predict_call_multi, PK.expand_gather_call]
 
     def reset():
         for f in counters:
@@ -2111,10 +2114,11 @@ def cli_phase(dev):
     reset()
     rep = quiet(run.main, ["replay", "--log", SAMPLE_LOG, "--out", os.path.join(tmp, "replay")])
     launches["cli-replay"] = counts()
-    if (launches["cli-replay"]["sequential_update"] != n_burst
-            or launches["cli-replay"]["symmetric_downdate"] != n_burst):
-        raise AssertionError(f"cli replay: launches {launches['cli-replay']}, expected K3 and "
-                             f"K12 {n_burst} (the log's ticks with an MBES burst)")
+    if ([launches["cli-replay"][k] for k in ("da_lanes", "sequential_update_fleet",
+                                             "symmetric_downdate", "sequential_update")]
+            != [n_burst, n_burst, n_burst, 0]):
+        raise AssertionError(f"cli replay: launches {launches['cli-replay']}, expected K1, K2 "
+                             f"and K12 {n_burst} (the log's ticks with an MBES burst), K3 none")
     if rep["ticks"] != T or not np.isfinite(rep["rmse_pos"]):
         raise AssertionError(f"cli replay: report {rep}")
     # card against CPU: the card's ekf_slam.run over the whole log (also
@@ -2148,7 +2152,7 @@ def cli_phase(dev):
         raise AssertionError(f"ekf_slam.run on the log: poses differ by {pose_err:.3e}")
     print(f"20b cli replay {SAMPLE_LOG} (T={T}, L={cfg.max_landmarks}, M={cfg.max_obs}): wall_s "
           f"{rep['wall_s']}, realtime_factor {rep['realtime_factor']}, "
-          f"{rep['n_landmarks_mapped']} landmarks, rmse_pos {rep['rmse_pos']:.4f} m; K3 and K12 "
+          f"{rep['n_landmarks_mapped']} landmarks, rmse_pos {rep['rmse_pos']:.4f} m; K1, K2 and K12 "
           f"once per burst tick ({n_burst}); first {CLI_CPU_S:g} s card vs CPU: "
           f"{rep_c['n_landmarks_mapped']} landmarks both, final_error {rep_c['final_error']:.6f} "
           f"/ {rep_p['final_error']:.6f}; ekf_slam.run matched_mbes equal, max pose err "
@@ -2158,8 +2162,8 @@ def cli_phase(dev):
     reset()
     demo = quiet(run.main, ["demo", "--duration", "60", "--out", os.path.join(tmp, "demo")])
     launches["cli-demo"] = counts()
-    if launches["cli-demo"]["sequential_update"] < 1:
-        raise AssertionError(f"cli demo: K3 was not launched: {launches['cli-demo']}")
+    if launches["cli-demo"]["da_lanes"] < 1 or launches["cli-demo"]["sequential_update_fleet"] < 1:
+        raise AssertionError(f"cli demo: K1 and K2 were not launched: {launches['cli-demo']}")
     d_c = quiet(run.main, ["demo", "--duration", f"{CLI_CPU_S:g}", "--out",
                            os.path.join(tmp, "dc")])
     d_p = quiet(run.main, ["demo", "--duration", f"{CLI_CPU_S:g}", "--out",
@@ -2174,7 +2178,7 @@ def cli_phase(dev):
     r = demo["report"]
     print(f"20c cli demo 60 s: dr_wall_s {r['dr_wall_s']:.6f}, slam_wall_s {r['slam_wall_s']:.4f}, "
           f"slam_realtime_factor {r['slam_realtime_factor']:.3f}, {r['n_landmarks_mapped']} "
-          f"landmarks, mean_error {r['mean_error']:.4f} m; K3 {launches['cli-demo']} launches; "
+          f"landmarks, mean_error {r['mean_error']:.4f} m; launches {launches['cli-demo']}; "
           f"{CLI_CPU_S:g} s card vs CPU: {d_c['report']['n_landmarks_mapped']} landmarks both, "
           f"final_error {d_c['report']['final_error']:.6f} / {d_p['report']['final_error']:.6f}",
           flush=True)
@@ -2214,7 +2218,8 @@ def cli_phase(dev):
         step, S.init_state(cfg, device=dev), tl, chunk_size=CHUNK, ckpt_dir=ck,
         ckpt_every_chunks=1))
     launches["chunked-replay"] = counts()
-    if launches["chunked-replay"]["sequential_update"] != n_burst:
+    if (launches["chunked-replay"]["da_lanes"] != n_burst
+            or launches["chunked-replay"]["sequential_update_fleet"] != n_burst):
         raise AssertionError(f"chunked replay: launches {launches['chunked-replay']}")
     assert_bitwise(fin, run_final, "chunked replay final state")
     assert_bitwise({k: torch.from_numpy(v) for k, v in out.items()},
@@ -2246,9 +2251,9 @@ def cli_phase(dev):
     with open(os.path.join(trace_dir, "replay_trace.json")) as f:
         events = json.load(f)["traceEvents"]
     traced = {k: sum(1 for e in events if names(e.get("name", ""), k))
-              for k in ("phase1_kernel", "downdate_kernel")}
+              for k in ("da_kernel", "phase1_kernel", "downdate_kernel")}
     if not all(traced.values()):
-        raise AssertionError(f"profile_replay: the trace names no K3 kernel: {traced}")
+        raise AssertionError(f"profile_replay: the trace lacks a K1 or K2 kernel: {traced}")
     print(f"20e chunked replay (chunk {CHUNK}, a checkpoint per chunk): {ch_ms:.1f} ms, final "
           f"state and outputs bitwise ekf_slam.run on the card; resumed from ckpt_{mid_tick}: "
           f"the tail bitwise; NaN guard: {nan_msg!r}; profile_replay trace of {first + 8} ticks: "
@@ -2745,24 +2750,26 @@ def main():
           f"n_active min {int(n_act.min())} mean {float(n_act.float().mean()):.1f} "
           f"max {int(n_act.max())}", flush=True)
 
-    # --- 6. single-mission step through K3 --------------------------------------
+    # --- 6. single-mission step through K1 + K2 at B=1 ----------------------------
+    launches = {f.__name__: f.launches for f in counters}
     mask0 = tl_np.events["mbes"].mask[0]
     k = int(next(i for i in range(T - 1, 0, -1) if mask0[i].any()))
     st0 = S.SlamState(*(x[0].contiguous() for x in final))
     tick = tl.map(lambda x: x[0, k])
-    s_k, o_k = S.step(cfg, params, st0, tick)                        # auto -> K3
+    s_k, o_k = S.step(cfg, params, st0, tick)                        # auto -> K1 + K2
+    step_launches = {f.__name__: f.launches - launches[f.__name__] for f in counters}
     s_p, o_p = S.step(cfg, params, st0, tick, update_mode="full")    # plain dense
     torch.cuda.synchronize()
     if not torch.equal(o_k["matched_mbes"], o_p["matched_mbes"]):
-        raise AssertionError("step: matched_mbes differs between K3 and the dense path")
+        raise AssertionError("step: matched_mbes differs between K1 + K2 and the dense path")
     err, tol = max_err(s_k.mu, s_p.mu)
     if err > tol:
         raise AssertionError(f"step: mu differs by {err:.3e} > {tol:.3e}")
-    launches = {f.__name__: f.launches for f in counters}
-    if launches["sequential_update"] < 1:
-        raise AssertionError("step: K3 was not launched")
+    if (step_launches["da_lanes"], step_launches["sequential_update_fleet"],
+            step_launches["symmetric_downdate"], step_launches["sequential_update"]) != (1, 1, 1, 0):
+        raise AssertionError(f"step: launches {step_launches}, expected K1, K2 and K12 once")
     print(f"step (mission 0, tick {k}): matched {o_k['matched_mbes'].tolist()}, "
-          f"mu err vs dense {err:.3e}; launches {launches}", flush=True)
+          f"mu err vs dense {err:.3e}; launches {step_launches}", flush=True)
     g_head["share"] = device_share(lambda: S.run_fleet(tl, params, cfg),
                                    {"da_kernel": T, "phase1_kernel": T, "downdate_kernel": T},
                                    ms, "headline run_fleet (graphed)")
@@ -2818,7 +2825,9 @@ def main():
                                 "slam-fleet32-L256-marginal": l256["marginal"]["da_lanes"],
                                 "combined-1M": cb_launch["da_lanes"],
                                 "raycast-fleet1024": rc_launch["da_lanes"],
-                                "slam-pf-fleet128": spf_launch["da_lanes"]}),
+                                "slam-pf-fleet128": spf_launch["da_lanes"],
+                                **{p: cli[p]["da_lanes"]
+                                   for p in ("cli-replay", "cli-demo", "chunked-replay")}}),
         # K2 and K3: the streamed path's device time, phase 1 + K12
         entry("sequential_update_fleet", "slam_update.cu", "slam_kernels.py:791",
               launches["sequential_update_fleet"], max(k2_err, k256["K2_774"]["err"], rk2["err"]),
@@ -2833,7 +2842,9 @@ def main():
               launches_by_path={"slam-fleet128-L64": launches["sequential_update_fleet"],
                                 "slam-fleet32-L256-full": l256["full"]["sequential_update_fleet"],
                                 "raycast-fleet1024": rc_launch["sequential_update_fleet"],
-                                "slam-pf-fleet128": spf_launch["sequential_update_fleet"]}),
+                                "slam-pf-fleet128": spf_launch["sequential_update_fleet"],
+                                **{p: cli[p]["sequential_update_fleet"]
+                                   for p in ("cli-replay", "cli-demo", "chunked-replay")}}),
         entry("sequential_update", "slam_update.cu", "slam_kernels.py:213",
               launches["sequential_update"], k3_err, k3_ms, k3_plain_ms, k3_bound,
               phase1_ms=k3_t["phase1_kernel"], downdate_ms=k3_t["downdate_kernel"],
@@ -2874,7 +2885,7 @@ def main():
               l256["full"]["hungarian_lanes"], k256["K11"]["err"], k256["K11"]["ms"],
               k256["K11"]["plain_ms"], k256["K11"]["bound"], shape=list(k256["K11"]["shape"]),
               L64_tables=brief(k11_64), past_register_jv=big["K11"]),
-        # K12 at the L=64 headline (launches: phases 5-6), and at L=256
+        # K12 at the L=64 headline (launches: phase 5), and at L=256
         entry("symmetric_downdate", "slam_downdate.cu", "slam_kernels.py:807",
               launches["symmetric_downdate"], max(k12_64["err"], k12_256["err"], rk12["err"]),
               k12_64["ms"],

@@ -9,7 +9,9 @@ and shapes. The fleet replay ``run_fleet`` is a Python loop over ticks whose
 every event pass runs the data-association kernel (K1,
 ``ops.slam_da_kernels.da_lanes``) and the sequential-update kernel (K2,
 ``ops.slam_kernels.sequential_update_fleet``, on its streamed schedule:
-phase 1 + the tiled downdate K12); ``step``'s kernel branch runs K3
+phase 1 + the tiled downdate K12). ``step`` on CUDA state runs each of
+its passes as the same K1 + K2 on views of the one mission with a leading
+axis of 1; ``data_associate_update``'s kernel branch runs K3
 (``ops.slam_kernels.sequential_update``, on the same schedule).
 ``run_fleet_compact`` runs the same event pass on event ticks only, with
 the predicts in between composed beforehand. ``run_fleet(update_mode="marginal")`` is the reference's own
@@ -527,7 +529,16 @@ def step(
 ):
     """One SLAM tick (``ekf_slam.cpp:296-350``): consume latest odometry,
     then run a DA pass per sensor whose burst is non-empty (a host-side
-    branch: one sync per sensor per tick)."""
+    branch: one sync per sensor per tick).
+
+    On CUDA state with the device solver in the kernel mode (``"auto"``,
+    ``"kernel"`` or ``"pallas"``), each pass is the fleet's pair of kernels
+    on B=1 views of the state (``_lanes_step_pass``: K1, whose JV runs on
+    the device, then K2). Everywhere else a pass is
+    ``data_associate_update``: the plain DA stage, the assignment
+    (``solver``) and ``da_commit`` in ``update_mode``."""
+    lanes = (state.mu.is_cuda and solver == "device"
+             and update_mode in ("auto", "kernel", "pallas"))
     with trace.span("slam.step"):
         odom = tick.channels["odom"]
         with trace.span("slam.predict"):
@@ -535,6 +546,8 @@ def step(
 
         def run_pass(st, ev, sensor):
             if bool(ev.mask.any()):
+                if lanes:
+                    return _lanes_step_pass(st, ev.value, ev.mask, params, cfg, sensor)
                 return data_associate_update(st, ev.value, ev.mask, params, cfg,
                                              sensor, solver, update_mode)
             return st, torch.full(ev.mask.shape, -1, dtype=torch.int32,
@@ -559,6 +572,21 @@ def step(
         if matched_fls is not None:
             out["matched_fls"] = matched_fls
         return st, out
+
+
+def _lanes_step_pass(state: SlamState, z, z_mask, params: SlamParams,
+                     cfg: EKFSlamConfig, sensor: SensorSpec) -> Tuple[SlamState, torch.Tensor]:
+    """One detection pass of ``step`` as the fleet pass's K1 + K2 on views
+    of the mission's state with a leading axis of 1 -> (state, matched),
+    squeezed back to ``data_associate_update``'s shapes. The same work as
+    its kernel mode, with K1's closed-form Jacobians and register JV in
+    place of ``jacfwd`` and the torch JV."""
+    st_b = SlamState(*(x[None] for x in state))
+    with trace.span("slam.da_stage"):
+        c, sel = _lanes_associate(st_b, z[None], z_mask[None], params, cfg, sensor)
+    with trace.span("slam.commit"):
+        new_b, matched, _ = _lanes_update(st_b, sel, c.new_cov)
+        return SlamState(*(x[0] for x in new_b)), matched[0]
 
 
 def _stack_outputs(outs: list) -> dict:
@@ -615,6 +643,47 @@ def pass_consts(params: SlamParams, cfg: EKFSlamConfig, sensor: SensorSpec) -> P
                       mh_dist=torch.full((), sensor.mh_dist(cfg), dtype=dt, device=dev))
 
 
+def _lanes_associate(state_b: SlamState, z_b, mask_b, params: SlamParams,
+                     cfg: EKFSlamConfig, sensor: SensorSpec, a8=None, band=None,
+                     consts: PassConsts = None):
+    """The K1 half of ``da_lanes_pass`` -> (the pass's ``PassConsts``, K1's
+    per-detection outputs (H_sel, SinvH, nu_sel, cand, do, add, slot))."""
+    c = pass_consts(params, cfg, sensor) if consts is None else consts
+    B = state_b.mu.shape[0]
+    L = cfg.max_landmarks
+    r_sb = params.r_fls_base if sensor.kind == "fls" else None
+    t_sb = params.t_fls_base if sensor.kind == "fls" else None
+    A = a8[:, 0:6, 0:6].contiguous() if a8 is not None else None
+    r_full = a8[:, 0:6, 8:14].contiguous() if a8 is not None else None
+    _ctr, *sel = slam_da_kernels.da_lanes(
+        state_b.mu[:, 0:6].contiguous(), state_b.n_active, state_b.active,
+        state_b.mu[:, 6:].reshape(B, L, 3).contiguous(), state_b.Sigma,
+        z_b[:, :, 0:3].contiguous(), mask_b.contiguous(),
+        c.q_diag, c.lam, c.outlier, c.mh_dist, c.new_cov,
+        sensor=sensor.kind, r_sb=r_sb, t_sb=t_sb, A=A, r_full=r_full, band=band,
+    )
+    return c, sel
+
+
+def _lanes_update(state_b: SlamState, sel, new_cov, a8=None, band=None,
+                  streamed: bool = True):
+    """The K2 half of ``da_lanes_pass`` on K1's outputs ``sel`` -> (state,
+    matched, the new band or None): the slot bookkeeping, then K2."""
+    H_sel, SinvH, nu_sel, cand, do, add, slot = sel
+    B, L = state_b.active.shape
+    lm_ix = 6 + 3 * slot
+    active = torch.cat([state_b.active, state_b.active.new_zeros(B, 1)], 1).scatter(
+        1, torch.where(add, slot, L).long(), True)[:, :L].contiguous()
+    n_active = state_b.n_active + add.sum(1, dtype=torch.int32)
+    upd = slam_kernels.sequential_update_fleet(
+        state_b.Sigma, state_b.mu, H_sel, SinvH, nu_sel, lm_ix, do, add,
+        new_cov, cand, a8, band, streamed=streamed)
+    matched = torch.where(do, slot, torch.full_like(slot, -1))
+    new_state = SlamState(mu=upd[1], Sigma=upd[0], active=active,
+                          n_active=n_active, mu_auv_odom=state_b.mu_auv_odom)
+    return new_state, matched, upd[2] if band is not None else None
+
+
 def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
                   cfg: EKFSlamConfig, sensor: SensorSpec = None,
                   a8=None, valid=None, band=None, consts: PassConsts = None,
@@ -631,32 +700,10 @@ def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
     ``consts`` (``pass_consts``) is made here when not given; ``streamed``
     is K2's schedule (``streamed=False``: the one-kernel schedule)."""
     sensor = MBES if sensor is None else sensor
-    c = pass_consts(params, cfg, sensor) if consts is None else consts
-    B = state_b.mu.shape[0]
-    L = cfg.max_landmarks
-    r_sb = params.r_fls_base if sensor.kind == "fls" else None
-    t_sb = params.t_fls_base if sensor.kind == "fls" else None
-    A = a8[:, 0:6, 0:6].contiguous() if a8 is not None else None
-    r_full = a8[:, 0:6, 8:14].contiguous() if a8 is not None else None
-    ctr, H_sel, SinvH, nu_sel, cand, do, add, slot = slam_da_kernels.da_lanes(
-        state_b.mu[:, 0:6].contiguous(), state_b.n_active, state_b.active,
-        state_b.mu[:, 6:].reshape(B, L, 3).contiguous(), state_b.Sigma,
-        z_b[:, :, 0:3].contiguous(), mask_b.contiguous(),
-        c.q_diag, c.lam, c.outlier, c.mh_dist, c.new_cov,
-        sensor=sensor.kind, r_sb=r_sb, t_sb=t_sb, A=A, r_full=r_full, band=band,
-    )
-    lm_ix = 6 + 3 * slot
-    active = torch.cat([state_b.active, state_b.active.new_zeros(B, 1)], 1).scatter(
-        1, torch.where(add, slot, L).long(), True)[:, :L].contiguous()
-    n_active = state_b.n_active + add.sum(1, dtype=torch.int32)
-    upd = slam_kernels.sequential_update_fleet(
-        state_b.Sigma, state_b.mu, H_sel, SinvH, nu_sel, lm_ix, do, add,
-        c.new_cov, cand, a8, band, streamed=streamed)
-    matched = torch.where(do, slot, torch.full_like(slot, -1))
-    new_state = SlamState(mu=upd[1], Sigma=upd[0], active=active,
-                          n_active=n_active, mu_auv_odom=state_b.mu_auv_odom)
+    c, sel = _lanes_associate(state_b, z_b, mask_b, params, cfg, sensor, a8, band, consts)
+    new_state, matched, band_out = _lanes_update(state_b, sel, c.new_cov, a8, band, streamed)
     if band is not None:
-        return new_state, matched, upd[2]
+        return new_state, matched, band_out
     return new_state, matched
 
 

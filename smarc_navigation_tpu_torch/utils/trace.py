@@ -17,10 +17,13 @@ Spans, each in the function named:
 
 - ``slam.step``: ``models/ekf_slam.step``, one online tick;
   inside it ``slam.predict`` (the motion predict) and, per sensor pass
-  with detections (``data_associate_update``), ``slam.da_stage`` (the
-  correspondence and cost table), ``slam.jv`` (the table to the host, the
-  assignment, the result back) and ``slam.commit`` (landmark adds and the
-  sequential update).
+  with detections, ``slam.da_stage`` and ``slam.commit``. On CUDA state
+  in the kernel mode (``_lanes_step_pass``) ``slam.da_stage`` is K1's
+  call (correspondence, cost table and JV) and ``slam.commit`` the slot
+  bookkeeping and K2. Elsewhere (``data_associate_update``)
+  ``slam.da_stage`` is the correspondence and cost table, ``slam.jv`` the
+  assignment (the table to the host and the result back) and
+  ``slam.commit`` the landmark adds and the sequential update.
 - ``slam.fleet.stage``: ``models/ekf_slam.run_fleet`` on one device with
   the full covariance, the input staging (``_loop_inputs``).
 - ``graphs.copy_in``, ``graphs.replay``, ``graphs.clone_out``:

@@ -13,9 +13,14 @@ tracks agree to 1e-3 over the 31 ticks: the kernels' componentwise Jacobians
 and factor-form update round differently from the port's jacfwd/einsum
 dense path (observed ~5e-6); the reference's own fleet-vs-dense test allows
 1e-2 over 60 ticks.
+
+The online step's pass on CUDA state (K1 + K2 on B=1 views) is held to
+``data_associate_update``'s kernel mode on the CPU, and on the card (tests
+marked ``cuda``) to the CPU's kernel mode over a recorded log.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -207,3 +212,203 @@ def test_unported_modes_raise():
                     device_mesh=mesh.make_mesh(mission=2, devices=[torch.device("cpu")] * 2))
     with pytest.raises(ValueError, match="update_mode"):
         S.run_fleet(tl.to("cpu"), _port_params(), CFG, update_mode="lowrank")
+
+
+# ---------------------------------------------------------------------------
+# the online step's pass on CUDA state: K1 + K2 on B=1 views
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mission", [0, 1])
+@pytest.mark.parametrize("sensor", ["mbes", "fls"])
+def test_step_lanes_pass_is_the_kernel_mode(case, mission, sensor):
+    """``step``'s pass on CUDA state (``_lanes_step_pass``: K1 + K2 on B=1
+    views), here on the kernels' plain versions, against
+    ``data_associate_update``'s kernel mode on the same predicted state at
+    every tick with detections: the same associations, activations and
+    landmark count, the same shapes and dtypes, states within the
+    fleet-vs-run tolerance."""
+    params, tl = case["params"], case["tls"][mission].to("cpu")
+    spec = {"mbes": S.MBES, "fls": S.FLS}[sensor]
+    st = S.init_state(CFG, device="cpu")
+    passes = matches = 0
+    for k in range(tl.num_ticks):
+        tick = tl.slice_tick(k)
+        ev = tick.events[sensor]
+        if bool(ev.mask.any()):
+            pred = S.predict(st, S._odom_pose(tick.channels["odom"].value), params)
+            got, m_got = S._lanes_step_pass(pred, ev.value, ev.mask, params, CFG, spec)
+            want, m_want = S.data_associate_update(pred, ev.value, ev.mask, params, CFG, spec,
+                                                   update_mode="kernel")
+            assert m_got.dtype == m_want.dtype and torch.equal(m_got, m_want), k
+            for a, b in zip(got, want):
+                assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(got.active, want.active) and torch.equal(got.n_active, want.n_active)
+            assert torch.equal(got.mu_auv_odom, want.mu_auv_odom)
+            np.testing.assert_allclose(got.mu.numpy(), want.mu.numpy(), atol=POSE_ATOL)
+            np.testing.assert_allclose(got.Sigma.numpy(), want.Sigma.numpy(),
+                                       atol=POSE_ATOL * float(want.Sigma.abs().max()))
+            passes += 1
+            matches += int((m_got >= 0).sum())
+        st, _ = S.step(CFG, params, st, tick, update_mode="kernel")
+    assert passes >= 10 and matches > passes, (passes, matches)
+
+
+@pytest.mark.parametrize("solver, update_mode", [
+    ("device", "auto"), ("device", "kernel"), ("device", "pallas"), ("device", "full"),
+    ("device", "marginal"), ("host", "auto"), ("host", "kernel"),
+])
+def test_step_on_cpu_state_keeps_the_torch_pass(case, monkeypatch, solver, update_mode):
+    """On CPU state every mode and solver keeps ``data_associate_update``'s
+    pass: ``da_lanes`` is never called, and each tick is bit for bit the
+    predict, that pass per sensor with detections and the odometry gate."""
+    from smarc_navigation_tpu_torch.ops import slam_da_kernels
+
+    calls = []
+    da_lanes = slam_da_kernels.da_lanes
+    monkeypatch.setattr(slam_da_kernels, "da_lanes",
+                        lambda *a, **k: calls.append(1) or da_lanes(*a, **k))
+    params, tl = case["params"], case["tls"][0].to("cpu")
+    st = ref = S.init_state(CFG, device="cpu")
+    for k in range(tl.num_ticks):
+        tick = tl.slice_tick(k)
+        st, out = S.step(CFG, params, st, tick, solver, update_mode)
+        odom = tick.channels["odom"]
+        new = S.predict(ref, S._odom_pose(odom.value), params)
+        for name, spec in (("mbes", S.MBES), ("fls", S.FLS)):
+            ev = tick.events[name]
+            matched = torch.full(ev.mask.shape, -1, dtype=torch.int32)
+            if bool(ev.mask.any()):
+                new, matched = S.data_associate_update(new, ev.value, ev.mask, params, CFG,
+                                                       spec, solver, update_mode)
+            assert torch.equal(out["matched_" + name], matched), (k, name)
+        ref = S.SlamState(*(torch.where(odom.valid, a, b) for a, b in zip(new, ref)))
+        assert all(torch.equal(a, b) for a, b in zip(st, ref)), k
+    assert not calls
+    assert int(st.n_active) >= 2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+LOG_TICKS = 300     # the sample log's first 30 s
+
+
+def _lolo_log(dev):
+    """``run.py replay``'s configuration and parameters on ``dev``, and its
+    default log's first LOG_TICKS ticks as a timeline on the CPU."""
+    from smarc_navigation_tpu_torch.io import logs
+
+    cfg = dataclasses.replace(EKFSlamConfig(), max_landmarks=64, max_obs=8, mhl_dist_mbes=1.0,
+                              q_mbes_diag=(0.1,) * 3, r_diag=(1e-3,) * 6)
+    streams, _ = logs.load_log(str(Path(__file__).resolve().parents[1] / "data"
+                                   / "sample_mission.npz"))
+    tl = logs.log_to_timeline(streams, freq_hz=cfg.system_freq, channels=("odom",),
+                              events={"mbes": cfg.max_obs})
+    tl = tl.map(lambda x: torch.as_tensor(x[:LOG_TICKS]))
+    return cfg, S.make_params(cfg, device=dev), tl
+
+
+def _launches():
+    from smarc_navigation_tpu_torch.ops import slam_da_kernels, slam_kernels
+
+    return {f.__name__: f.launches for f in (
+        slam_da_kernels.da_lanes, slam_kernels.sequential_update_fleet,
+        slam_kernels.symmetric_downdate, slam_kernels.sequential_update)}
+
+
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launches().items()}
+
+
+@pytest.mark.cuda
+def test_card_run_is_the_cpu_kernel_mode(cuda, monkeypatch):
+    """``run`` of a LoLo log on CUDA state (each pass K1 + K2 at B=1)
+    against the same log through the CPU's kernel mode: matched_mbes and
+    n_active exactly, states within tolerance; K1, K2 and K12 launch once
+    per tick with detections, K3 never, and the torch JV is never called."""
+    from smarc_navigation_tpu_torch.ops import assignment
+
+    cfg, params, tl = _lolo_log(cuda)
+    n_burst = int(tl.events["mbes"].mask.any(-1).sum())
+    assert n_burst >= 50
+    calls = []
+    hungarian = assignment.hungarian
+    monkeypatch.setattr(assignment, "hungarian",
+                        lambda *a, **k: calls.append(1) or hungarian(*a, **k))
+    n0 = _launches()
+    final, out = S.run(tl.to(cuda), params, cfg)
+    torch.cuda.synchronize()
+    assert _delta(n0) == {"da_lanes": n_burst, "sequential_update_fleet": n_burst,
+                          "symmetric_downdate": n_burst, "sequential_update": 0}
+    assert not calls
+    cpu_final, cpu_out = S.run(tl, S.make_params(cfg, device="cpu"), cfg, update_mode="kernel")
+    for key in ("matched_mbes", "n_active"):
+        assert out[key].dtype == cpu_out[key].dtype
+        assert torch.equal(out[key].cpu(), cpu_out[key]), key
+    np.testing.assert_allclose(out["mu"].cpu().numpy(), cpu_out["mu"].numpy(), atol=POSE_ATOL)
+    np.testing.assert_allclose(out["sigma_diag6"].cpu().numpy(), cpu_out["sigma_diag6"].numpy(),
+                               rtol=1e-3, atol=1e-6)
+    S_cpu = cpu_final.Sigma.numpy()
+    np.testing.assert_allclose(final.Sigma.cpu().numpy(), S_cpu, rtol=2e-3,
+                               atol=1e-4 * np.abs(S_cpu).max())
+    assert int(final.n_active) >= 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver, update_mode, k3", [
+    ("host", "auto", True), ("device", "full", False), ("device", "marginal", False)])
+def test_card_step_off_the_kernel_mode_keeps_the_torch_pass(cuda, solver, update_mode, k3):
+    """On CUDA state the host solver and the dense modes keep
+    ``data_associate_update``'s pass: no K1 or K2 launch; K3 only where the
+    mode resolves to the kernel branch."""
+    cfg, params, tl = _lolo_log(cuda)
+    tl = tl.map(lambda x: x[:60]).to(cuda)
+    n_burst = int(tl.events["mbes"].mask.any(-1).sum())
+    assert n_burst >= 10
+    n0 = _launches()
+    S.run(tl, params, cfg, solver=solver, update_mode=update_mode)
+    torch.cuda.synchronize()
+    assert _delta(n0) == {"da_lanes": 0, "sequential_update_fleet": 0,
+                          "symmetric_downdate": n_burst if k3 else 0,
+                          "sequential_update": n_burst if k3 else 0}
+
+
+# kernels of one eager fleet tick of CFG with both sensors (B=2), counted
+# by torch.profiler on an H100 before the fleet pass was split for the step
+FLEET_TICK_KERNELS = 135
+
+
+@pytest.mark.cuda
+def test_card_fleet_launches_per_tick(cuda):
+    """The fleet pass, split into its K1 and K2 halves for the step, still
+    launches in a fleet tick K1, K2 and K12 once per sensor pass and, in
+    all, the kernels it launched before the split."""
+    params = S.SlamParams(*(x.to(cuda) for x in _port_params()))
+    tls = [ptl.build_timeline(**_raw_mission(s, _port_params())) for s in (1, 2)]
+    inp, names = S._loop_inputs(fleet.batch_timelines(tls).to(cuda), params, CFG)
+    params, s0, consts, c12 = S._loop_setup(inp, names)
+    B, L = inp["valid"].shape[1], CFG.max_landmarks
+    state = S.SlamState(*(x.expand((B,) + x.shape).contiguous() for x in s0))
+    band = inp["band0"].expand(B, 24, L).contiguous()
+
+    def tick(t, state, band):
+        return S._full_tick(state, band, inp["odom_pose"][t], inp["valid"][t],
+                            S._tick_events(inp, names, t), params, CFG, consts, c12)[:2]
+
+    state, band = tick(0, state, band)      # first use: builds and loads the kernels
+    torch.cuda.synchronize()
+    n0 = _launches()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for t in (1, 2, 3):
+            state, band = tick(t, state, band)
+        torch.cuda.synchronize()
+    assert _delta(n0) == {"da_lanes": 6, "sequential_update_fleet": 6,
+                          "symmetric_downdate": 6, "sequential_update": 0}
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset")))
+    assert kernels == 3 * FLEET_TICK_KERNELS, kernels / 3
