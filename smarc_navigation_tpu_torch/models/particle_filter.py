@@ -62,6 +62,7 @@ from ..ops import pf_kernels, resampling
 from ..ops.timeline import Timeline, build_timeline
 from ..parallel import mesh as mesh_lib
 from ..parallel import resample_dist
+from ..utils import trace
 from ..utils.geometry import quat_from_rpy_np, rotmat_from_rpy, rpy_from_quat, wrap_angle
 
 
@@ -462,10 +463,16 @@ def _update_resample_fast(parts, gps_map_xy, u, seed, params):
     """Weights -> systematic resample with the x/y/yaw jitter and the
     post-resample moment sums fused into the gather (K7). ``u`` is the
     resample uniform, ``seed`` the jitter seed. z/roll/pitch are not
-    jittered: the next predict substitutes them from odometry."""
-    w = resampling.normalize_weights_det(_fast_logw(parts, gps_map_xy, params))
-    return pf_kernels.systematic_resample_gather(parts, w, u, jitter_sd=_jitter_sd(params),
-                                                 seed=seed)
+    jittered: the next predict substitutes them from odometry. The counts
+    and the gather are ``pf_kernels.systematic_resample_gather``'s, each
+    under a span of its own."""
+    with trace.span("pf.update"):
+        with trace.span("pf.weights"):
+            w = resampling.normalize_weights_det(_fast_logw(parts, gps_map_xy, params))
+        with trace.span("pf.counts"):
+            m_cum = resampling.systematic_counts(w, u)
+        with trace.span("pf.gather"):
+            return pf_kernels.expand_gather_call(m_cum, parts, _jitter_sd(params), seed)
 
 
 def _update_resample_fast_shard(parts, gps_map_xy, u, seed, params, axis_name):
@@ -609,23 +616,26 @@ def _run_segments(pre: TickInputs, s0_particles, plan, params, nxy, nyaw_on):
     cov (T,3,3))."""
     idx, valid, upd_seg, upd_tick, upd_slot, flat_slot = plan
     S, K = idx.shape
-    seg_par, seg_seeds, seg_gps, seg_u, seg_nseed = _segment_inputs(
-        pre, idx, valid, upd_tick)
+    with trace.span("pf.segment_inputs"):
+        seg_par, seg_seeds, seg_gps, seg_u, seg_nseed = _segment_inputs(
+            pre, idx, valid, upd_tick)
     parts = s0_particles
     sums_all = []
     for s in range(S):
-        parts, sums = pf_kernels.predict_call_multi(
-            parts, seg_par[s], seg_seeds[s], nxy=nxy, nyaw=nyaw_on,
-            nticks=int(upd_slot[s]) + 1)
+        with trace.span("pf.predict"):
+            parts, sums = pf_kernels.predict_call_multi(
+                parts, seg_par[s], seg_seeds[s], nxy=nxy, nyaw=nyaw_on,
+                nticks=int(upd_slot[s]) + 1)
         if upd_seg[s]:
             parts, s2 = _update_resample_fast(parts, seg_gps[s], seg_u[s],
                                               seg_nseed[s], params)
             sums[int(upd_slot[s])] = s2
         sums_all.append(sums)
-    flat = torch.as_tensor(flat_slot, dtype=torch.int64, device=parts.device)
-    sums_t = torch.stack(sums_all).reshape(S * K, pf_kernels.N_SUMS, -1)[flat]
-    mean, cov = pf_kernels.finalize_moments(
-        sums_t, pre.vals[:, 2], pre.rpy[:, 0], pre.rpy[:, 1])
+    with trace.span("pf.finalize"):
+        flat = torch.as_tensor(flat_slot, dtype=torch.int64, device=parts.device)
+        sums_t = torch.stack(sums_all).reshape(S * K, pf_kernels.N_SUMS, -1)[flat]
+        mean, cov = pf_kernels.finalize_moments(
+            sums_t, pre.vals[:, 2], pre.rpy[:, 0], pre.rpy[:, 1])
     return parts, mean, cov
 
 
@@ -676,7 +686,8 @@ def _run_segments_sharded(pre: TickInputs, s0_particles, plan, params, nxy, nyaw
     S, K = idx.shape
     dev = s0_particles.device
     row, ns = _shards(pmesh, s0_particles.shape[1])
-    seg = mesh_lib.replicate(_segment_inputs(pre, idx, valid, upd_tick), row)
+    with trace.span("pf.segment_inputs"):
+        seg = mesh_lib.replicate(_segment_inputs(pre, idx, valid, upd_tick), row)
     prm = mesh_lib.replicate(params, row)
     bank = mesh_lib.particle_sharding(row, 2, 1)
     parts = bank.shard(s0_particles)[0]
@@ -752,14 +763,15 @@ def run_fast_segmented(
     bank and moments."""
     n = cfg.particle_count if n_particles is None else n_particles
     dev = timeline.ticks.device
-    g = _generator(generator, dev)
-    ch = timeline.channels
-    upd_host = (ch["gps"].fresh & (ch["diving"].value[:, 0] < 0.5)).cpu().numpy()
-    plan = _segment_arrays(upd_host, k_max)
-    nxy, nyaw_on = _noise_flags(params)
+    with trace.span("pf.precompute"):
+        g = _generator(generator, dev)
+        ch = timeline.channels
+        upd_host = (ch["gps"].fresh & (ch["diving"].value[:, 0] < 0.5)).cpu().numpy()
+        plan = _segment_arrays(upd_host, k_max)
+        nxy, nyaw_on = _noise_flags(params)
 
-    s0 = init_state(n, params, g)
-    pre = _tick_precompute(timeline, params, g)
+        s0 = init_state(n, params, g)
+        pre = _tick_precompute(timeline, params, g)
     if pmesh is not None:
         final_parts, mean, cov = _run_segments_sharded(pre, s0.particles, plan, params, nxy,
                                                        nyaw_on, pmesh)

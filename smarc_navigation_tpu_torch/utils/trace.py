@@ -29,6 +29,21 @@ Spans, each in the function named:
 - ``graphs.copy_in``, ``graphs.replay``, ``graphs.clone_out``:
   ``utils/graphs.run`` on a cached graph, the copies into the static
   inputs, the graph's launch, the output clones.
+- ``pf.precompute``: ``models/particle_filter.run_fast_segmented``, once
+  per call: the initial bank, ``_tick_precompute``'s draws and per-tick
+  rows, the update and motion-noise flags read to the host (the path's two
+  syncs) and the segment plan.
+- ``pf.segment_inputs``: ``models/particle_filter._run_segments`` and
+  ``_run_segments_sharded``, once per run: ``_segment_inputs``, the
+  per-segment rows gathered from the per-tick ones.
+- ``pf.predict``: ``models/particle_filter._run_segments``, each K5 call
+  (``predict_call_multi``), one per segment.
+- ``pf.update``: ``models/particle_filter._update_resample_fast``, one
+  GPS update; inside it ``pf.weights`` (the log-weights and
+  ``normalize_weights_det``), ``pf.counts`` (``systematic_counts`` with
+  the blocked CDF) and ``pf.gather`` (K7's call, ``expand_gather_call``).
+- ``pf.finalize``: ``models/particle_filter._run_segments``, once per
+  run: the stack of the moment partials and ``finalize_moments``.
 
 Nothing inside a captured graph body records a span: it would record once,
 at capture, and never on a replay.
