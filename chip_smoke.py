@@ -67,7 +67,11 @@ Phases (any failure exits nonzero; nothing is caught):
      bitwise); K5 timed over nticks 0, 1, 5 and 10 (the intercept is the
      bank's bytes, the slope the tick loop), K7 timed by weights, with and
      without the jitter, beside ``torch.repeat_interleave`` of the bank by
-     the counts (K7's ``library_ms``);
+     the counts (K7's ``library_ms``); K13 ``gps_weights_call`` and K14
+     (``resampling.systematic_counts``) bitwise their plain versions on the
+     same inputs, at 2^20, at a bank of 10^6 that does not tile by
+     CDF_BLOCK and (K14) at the SLAM + PF fleet's (8, 1024) banks, each
+     timed beside its plain version;
   8. the PF slice against its plain version: ``run_fast_segmented`` and
      ``run_fast`` at N = 2^20 over a 10 s mission with every noise std zero
      but the initial spread, on the card (kernels) and on the CPU (plain
@@ -75,10 +79,10 @@ Phases (any failure exits nonzero; nothing is caught):
      the noise on, the two paths' banks on the card bitwise equal;
   9. the headline PF replay: ``run(..., scheme="systematic",
      use_pallas=True)`` on the 60 s mission at N = 2^20, timed; K5 must have
-     launched once per segment and K7 once per GPS update; then the per-tick
-     path (``segmented=False``), K6 once per tick;
+     launched once per segment and K7, K13 and K14 once per GPS update; then
+     the per-tick path (``segmented=False``), K6 once per tick;
  10. the combined mission ``run_combined`` on ``combined_workload(cfg, 60)``,
-     timed; K1/K2/K12 once per event tick, K5/K7 as in phase 9;
+     timed; K1/K2/K12 once per event tick, K5/K7/K13/K14 as in phase 9;
  11. K9 ``fleet_tick`` against its plain version at B=64 and B=512 (N=64 map
      slots, M=8 detections), on the state of the benchmark's localization
      fleet at its first tick from T_WARM on that brings detections, and
@@ -127,7 +131,8 @@ Phases (any failure exits nonzero; nothing is caught):
      ``parallel.fleet.run_fleet`` (8 missions, 40 ticks, N=1024, both PF
      schemes) on the card against the CPU with the same seeds:
      associations, n_active and GPS updates exact, poses within POSE_TOL,
-     the PF mean within FLEET_PF_TOL;
+     the PF mean within FLEET_PF_TOL; K14 once a tick on the card with the
+     systematic scheme, never with the residual one;
  19. the SLAM + PF fleet ``parallel.fleet.run_fleet`` at the headline's
      width (B=128, L=64, M=8, the first 101 ticks of its timeline) with
      1024 particles a mission and the residual resampler, graphed against
@@ -149,8 +154,8 @@ Phases (any failure exits nonzero; nothing is caught):
      metrics within POSE_TOL); (c) ``demo --duration
      60`` (K1 and K2 launched), and ``demo --duration 30`` on the card and the
      CPU (n_landmarks_mapped exact, final and mean error within POSE_TOL);
-     (d) ``pf --particles 1048576 --pallas``: K5 once per segment and K7
-     once per GPS update in each of the CLI's two replays, xy_err_mean_m
+     (d) ``pf --particles 1048576 --pallas``: K5 once per segment and K7,
+     K13 and K14 once per GPS update in each of the CLI's two replays, xy_err_mean_m
      under PF_CLI_ERR_M, beside the dense path's at the same N; (e)
      ``io.replay.run_chunked`` of the single-mission SLAM step on the log
      (chunks of 128, a checkpoint after each) bitwise ``ekf_slam.run`` on
@@ -169,7 +174,8 @@ Phases (any failure exits nonzero; nothing is caught):
      by side bitwise the 2^20 call; K8 at a shard's shape; (b)
      ``run_fast_segmented(pmesh=make_mesh(particle=4))`` on pf-1M-60s
      bitwise the unsharded replay (bank, mean, cov), K5, the window form
-     and K8 four times per segment / GPS update, timed beside the unsharded
+     and K8 four times per segment / GPS update (K7, K13 and K14 never),
+     timed beside the unsharded
      replay (medians of three), and a forced exact-branch resample bitwise
      the unsharded gather; (c) ``ekf_slam.run_fleet(device_mesh=
      make_mesh(mission=4))`` at the headline (T=601, each mission shard
@@ -209,7 +215,9 @@ K7's on the CLI's pf;
 the kernels of one library call, from the same profiler. The
 kernel launch counts are reset just before each main path (phases 5, 5b,
 5c, 9, 9b, 10, 14, 15, 17, 19 and 21b-d) and read just after it. K8 and K7's window form take their launches from the
-particle-sharded PF replay (21b), their only caller; K11 has none on any
+particle-sharded PF replay (21b), their only caller; K13's and K14's are
+the headline PF replay's (phase 9), with their counts on the other PF paths
+(9b, 10, 18's systematic fleet, 20d, 21b) beside them; K11 has none on any
 path (the reference calls it from tests only; its JV core runs inside
 K1), so its count is 0. ``bound_ms`` is the largest of the bytes
 each kernel must move (inputs read once, outputs written once) over
@@ -687,6 +695,7 @@ def pf_kernels_phase(dev, tl_pf):
                      plain_ms=wall_ms(lambda: PK.jitter_moments_call_reference(
                          g_h, jsd, seed), 10),
                      bound=bound(nbytes(g_h, jsd, *k8()), n * PF_JITTER_FLOPS, jit_ops))
+    res.update(update_kernels(dev, bank, gps, params, pre.res_u[t_up], w_deg))
     for k, v in res.items():
         print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device "
               f"({v['wall_ms']:.4f} ms per call back to back), plain {v['plain_ms']:.4f} ms, "
@@ -703,6 +712,70 @@ def pf_kernels_phase(dev, tl_pf):
           "K7(jitter) == K8(K7) bitwise; K7 ancestors exact on healthy, degenerate "
           "and zero-run weights", flush=True)
     return res
+
+
+UPD_NONTILING = 10 ** 6  # phase 7: K13 / K14 at a bank that does not tile by CDF_BLOCK
+UPD_FLEET = (8, 1024)     # phase 7: K14 at the SLAM + PF fleet's banks (phase 18)
+
+
+def update_kernels(dev, bank, gps, params, u, w_deg):
+    """Phase 7's K13 and K14 (the GPS update's weights and counts), each
+    bitwise its plain version on the same inputs and timed beside it: at
+    the main path's 2^20, at a bank of 10^6 that does not tile by
+    CDF_BLOCK (the plain version is what the card ran before them) and,
+    for K14, at the SLAM + PF fleet's (8, 1024) banks. Returns {"K13": ...,
+    "K14": ...} with the 2^20 numbers and the others under ``non_tiling``
+    and ``fleet``."""
+    import torch
+
+    from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import resampling as RS
+
+    def k13(b):
+        got = PK.gps_weights_call(b, gps, params)
+        torch.cuda.synchronize()
+        if not bitwise(got, PK.gps_weights_call_reference(b, gps, params)):
+            raise AssertionError(f"K13 at N={b.shape[1]}: weights differ from the plain version")
+        return got, dict(
+            n=b.shape[1], err=0.0,
+            ms=device_ms(lambda: PK.gps_weights_call(b, gps, params), 30, "gps_weights_kernel"),
+            wall_ms=wall_ms(lambda: PK.gps_weights_call(b, gps, params), 50),
+            plain_ms=wall_ms(lambda: PK.gps_weights_call_reference(b, gps, params), 10),
+            bound=bound(nbytes(b[0:3], got), 0))
+
+    def k14(w, uu, kernel):
+        for v in (uu, torch.zeros_like(uu), torch.full_like(uu, 1.0 - 2.0 ** -6)):
+            got = RS.systematic_counts(w, v)
+            torch.cuda.synchronize()
+            if not bitwise(got, RS.systematic_counts_reference(w, v)):
+                raise AssertionError(f"K14 at {tuple(w.shape)}, u {v}: counts differ from the "
+                                     f"plain version")
+        got = RS.systematic_counts(w, uu)
+        return dict(shape=list(w.shape), err=0.0,
+                    ms=device_ms(lambda: RS.systematic_counts(w, uu), 30, kernel),
+                    wall_ms=wall_ms(lambda: RS.systematic_counts(w, uu), 50),
+                    plain_ms=wall_ms(lambda: RS.systematic_counts_reference(w, uu), 10),
+                    bound=bound(nbytes(w, got), 0))
+
+    w, r13 = k13(bank)
+    w_nt, r13_nt = k13(bank[:, :UPD_NONTILING].contiguous())
+    grid = "systematic_counts_grid_kernel"
+    r14 = k14(w, u, grid)
+    k14(w_deg, u, grid)
+    r14_nt = k14(w_nt, u, grid)
+    B, nf = UPD_FLEET
+    wf = PK.gps_weights_call_reference(bank[:, :B * nf].contiguous(), gps, params).reshape(B, nf)
+    wf = (wf / wf.sum(1, keepdim=True)).contiguous()
+    uf = torch.rand(B, generator=torch.Generator(device=dev).manual_seed(5), device=dev)
+    r14_fl = k14(wf, uf, "systematic_counts_flat_kernel")
+    print(f"K13 at N={UPD_NONTILING} (no tiling): {r13_nt['ms'] * 1e3:.2f} us device, "
+          f"{r13_nt['wall_ms']:.4f} ms a call back to back, plain {r13_nt['plain_ms']:.4f} ms; "
+          f"K14 at N={UPD_NONTILING}: {r14_nt['ms'] * 1e3:.2f} us device, {r14_nt['wall_ms']:.4f} "
+          f"ms a call, plain {r14_nt['plain_ms']:.4f} ms; K14 at {UPD_FLEET}: "
+          f"{r14_fl['ms'] * 1e3:.2f} us device, {r14_fl['wall_ms']:.4f} ms a call, plain "
+          f"{r14_fl['plain_ms']:.4f} ms; each bitwise its plain version (K14 also on degenerate "
+          f"weights and at u = 0 and 1 - 2^-6)", flush=True)
+    return {"K13": dict(r13, non_tiling=r13_nt), "K14": dict(r14, non_tiling=r14_nt, fleet=r14_fl)}
 
 
 def pf_slice_phase(dev, tl10):
@@ -901,6 +974,7 @@ def pf_main_paths(dev, cfg, params, counters):
     from smarc_navigation_tpu_torch.io.workloads import combined_workload
     from smarc_navigation_tpu_torch.models import particle_filter as PF
     from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import resampling as RS
     from smarc_navigation_tpu_torch.parallel import fleet as FL
 
     with warnings.catch_warnings():
@@ -920,16 +994,17 @@ def pf_main_paths(dev, cfg, params, counters):
     PF.run(tl_pf.map(lambda x: x[:40]), pf_params, pf_cfg, scheme="systematic",
            use_pallas=True)                                     # warm-up
     pf_counters = [PK.predict_call_multi, PK.predict_call, PK.expand_gather_call,
-                   PK.jitter_moments_call]
+                   PK.jitter_moments_call, PK.gps_weights_call, RS.systematic_counts]
     for f in pf_counters:
         f.launches = 0
     (fin_pf, out_pf), pf_ms, pf_wall = timed(lambda: PF.run(
         tl_pf, pf_params, pf_cfg, generator=torch.Generator(device=dev).manual_seed(0),
         scheme="systematic", use_pallas=True))
     pf_launch = {f.__name__: f.launches for f in pf_counters}
-    if pf_launch["predict_call_multi"] != n_seg or pf_launch["expand_gather_call"] != n_upd:
+    if (pf_launch["predict_call_multi"] != n_seg or pf_launch["expand_gather_call"] != n_upd
+            or pf_launch["gps_weights_call"] != n_upd or pf_launch["systematic_counts"] != n_upd):
         raise AssertionError(f"PF headline: launches {pf_launch}, expected K5 {n_seg} "
-                             f"(segments) and K7 {n_upd} (GPS updates)")
+                             f"(segments), K7, K13 and K14 {n_upd} (GPS updates)")
     for name, x in (("bank", fin_pf.particles), ("mean", out_pf["mean"]), ("cov", out_pf["cov"])):
         if not bool(torch.isfinite(x).all()):
             raise AssertionError(f"PF headline: non-finite {name}")
@@ -951,7 +1026,9 @@ def pf_main_paths(dev, cfg, params, counters):
         tl_pf, pf_params, pf_cfg, generator=torch.Generator(device=dev).manual_seed(0),
         scheme="systematic", use_pallas=True, segmented=False))
     pt_launch = {f.__name__: f.launches for f in pf_counters}
-    if pt_launch["predict_call"] != T_pf or pt_launch["expand_gather_call"] != n_upd:
+    if (pt_launch["predict_call"] != T_pf
+            or any(pt_launch[k] != n_upd
+                   for k in ("expand_gather_call", "gps_weights_call", "systematic_counts"))):
         raise AssertionError(f"PF per-tick path: launches {pt_launch}")
     if not torch.equal(out_pt["mean"], out_pf["mean"]):
         raise AssertionError("PF per-tick path: mean track differs from the segmented path")
@@ -972,9 +1049,10 @@ def pf_main_paths(dev, cfg, params, counters):
     if (cb_launch["da_lanes"] != n_ev or cb_launch["sequential_update_fleet"] != n_ev
             or cb_launch["symmetric_downdate"] != n_ev
             or cb_launch["predict_call_multi"] != n_seg
-            or cb_launch["expand_gather_call"] != n_upd):
+            or any(cb_launch[k] != n_upd
+                   for k in ("expand_gather_call", "gps_weights_call", "systematic_counts"))):
         raise AssertionError(f"combined: launches {cb_launch}, expected K1/K2/K12 {n_ev} "
-                             f"(event ticks), K5 {n_seg}, K7 {n_upd}")
+                             f"(event ticks), K5 {n_seg}, K7, K13 and K14 {n_upd}")
     if not bool(torch.isfinite(val)):
         raise AssertionError("combined: non-finite result")
     print(f"combined mission (SLAM B=1 L={cfg.max_landmarks} M={cfg.max_obs}, {n_ev} event ticks of "
@@ -1871,6 +1949,7 @@ def slice12_checks(dev):
     from smarc_navigation_tpu_torch.models import dead_reckoning as DR
     from smarc_navigation_tpu_torch.models import ekf_slam as S
     from smarc_navigation_tpu_torch.models import particle_filter as PF
+    from smarc_navigation_tpu_torch.ops import resampling as RS
     from smarc_navigation_tpu_torch.parallel import fleet as FL
 
     t0 = time.perf_counter()
@@ -1920,13 +1999,22 @@ def slice12_checks(dev):
         warnings.simplefilter("ignore")
         ftl = slam_fleet_timelines(scfg, 3.9, 8)
     pcfg = PFConfig(particle_count=1024)
+    res["fleet_k14"] = {}
     for scheme in ("residual", "systematic"):
         outs = {}
         for d in (dev, "cpu"):
+            RS.systematic_counts.launches = 0
             outs[str(d)] = FL.run_fleet(ftl.to(d), scfg, S.make_params(scfg, device=d), pcfg,
                                         PF.make_params(pcfg, device=d), 1024, seed=3,
                                         pf_scheme=scheme, graph=False)[1]
+            if d == dev:
+                res["fleet_k14"][scheme] = RS.systematic_counts.launches
         (og, oc) = (outs[str(dev)], outs["cpu"])
+        # the systematic scheme's (8, 1024) banks take K14 once a tick
+        want = og["pf"]["mean"].shape[0] if scheme == "systematic" else 0
+        if res["fleet_k14"][scheme] != want:
+            raise AssertionError(f"SLAM+PF fleet ({scheme}): {res['fleet_k14'][scheme]} K14 "
+                                 f"launches, expected {want}")
         for key in ("matched_mbes", "n_active"):
             if not torch.equal(og["slam"][key].cpu(), oc["slam"][key]):
                 raise AssertionError(f"SLAM+PF fleet ({scheme}): slam {key} differs card vs CPU")
@@ -1939,8 +2027,8 @@ def slice12_checks(dev):
                                  f"pf mean {e_p:.3e}")
         print(f"SLAM+PF fleet B=8 T={og['pf']['mean'].shape[0]} N=1024 ({scheme}): card vs CPU "
               f"(seed 3): associations, n_active and updates equal, max slam pose err {e_s:.3e}, "
-              f"max pf mean err {e_p:.3e} ({int(og['pf']['updated'].sum())} GPS updates)",
-              flush=True)
+              f"max pf mean err {e_p:.3e} ({int(og['pf']['updated'].sum())} GPS updates); K14 "
+              f"launches {res['fleet_k14'][scheme]}", flush=True)
     print(f"slice-12 checks: {time.perf_counter() - t0:.1f} s", flush=True)
     return res
 
@@ -2045,13 +2133,15 @@ def cli_phase(dev):
     from smarc_navigation_tpu_torch.models import particle_filter as PF
     from smarc_navigation_tpu_torch.ops import assignment
     from smarc_navigation_tpu_torch.ops import pf_kernels as PK
+    from smarc_navigation_tpu_torch.ops import resampling as RS
     from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
     from smarc_navigation_tpu_torch.ops import slam_kernels as K2
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     counters = [K1.da_lanes, K2.sequential_update_fleet, K2.sequential_update,
-                K2.symmetric_downdate, PK.predict_call_multi, PK.expand_gather_call]
+                K2.symmetric_downdate, PK.predict_call_multi, PK.expand_gather_call,
+                PK.gps_weights_call, RS.systematic_counts]
 
     def reset():
         for f in counters:
@@ -2194,9 +2284,10 @@ def cli_phase(dev):
     launches["cli-pf"] = counts()
     # the CLI replays twice (its warm-up, then the timed replay)
     if (launches["cli-pf"]["predict_call_multi"] != 2 * n_seg
-            or launches["cli-pf"]["expand_gather_call"] != 2 * n_upd):
+            or any(launches["cli-pf"][k] != 2 * n_upd
+                   for k in ("expand_gather_call", "gps_weights_call", "systematic_counts"))):
         raise AssertionError(f"cli pf: launches {launches['cli-pf']}, expected K5 2 x {n_seg} "
-                             f"(segments) and K7 2 x {n_upd} (GPS updates)")
+                             f"(segments), K7, K13 and K14 2 x {n_upd} (GPS updates)")
     if not (np.isfinite(pf["xy_err_mean_m"]) and pf["xy_err_mean_m"] < PF_CLI_ERR_M):
         raise AssertionError(f"cli pf: xy_err_mean_m {pf['xy_err_mean_m']} >= {PF_CLI_ERR_M}")
     dense = quiet(run.main, ["pf", "--particles", str(PF_N)])
@@ -2205,7 +2296,7 @@ def cli_phase(dev):
           f"realtime_factor {pf['realtime_factor']}, wall_s {pf['wall_s']}, xy_err_mean_m "
           f"{pf['xy_err_mean_m']} (bound {PF_CLI_ERR_M}); the dense path (residual) at the same "
           f"N: xy_err_mean_m {dense['xy_err_mean_m']}, wall_s {dense['wall_s']}, "
-          f"particle_updates_per_sec {dense['particle_updates_per_sec']}; K5 and K7 "
+          f"particle_updates_per_sec {dense['particle_updates_per_sec']}; K5, K7, K13 and K14 "
           f"{launches['cli-pf']}", flush=True)
 
     # --- 20e. the chunked SLAM replay --------------------------------------------------
@@ -2310,7 +2401,7 @@ def mesh_kernels_phase(dev, tl_pf):
     nxy, nyaw = PF._noise_flags(params)
     t_up = int(pre.do_update.nonzero()[0])
     gps, u = pre.gps_xy[t_up], pre.res_u[t_up]
-    weights = {"healthy": RS.normalize_weights_det(PF._fast_logw(bank, gps, params))}
+    weights = {"healthy": RS.normalize_weights_det(PK.fast_logw(bank, gps, params))}
     weights["degenerate"] = torch.zeros(n, device=dev)
     weights["degenerate"][777] = 1.0
     zr = torch.zeros(n, device=dev)
@@ -2411,7 +2502,7 @@ def mesh_pf_phase(dev, tl_pf):
     run(pm)                                                      # warm-up
     run(None)
     counters = [PK.predict_call_multi, PK.expand_gather_window_call, PK.jitter_moments_call,
-                PK.expand_gather_call]
+                PK.expand_gather_call, PK.gps_weights_call, RS.systematic_counts]
     for f in counters:
         f.launches = 0
     resample_dist.exact_fallbacks = 0
@@ -2419,7 +2510,8 @@ def mesh_pf_phase(dev, tl_pf):
     launches = {f.__name__: f.launches for f in counters}
     fallbacks = resample_dist.exact_fallbacks
     want = dict(predict_call_multi=P_ * n_seg, expand_gather_window_call=P_ * n_upd,
-                jitter_moments_call=P_ * n_upd, expand_gather_call=0)
+                jitter_moments_call=P_ * n_upd, expand_gather_call=0, gps_weights_call=0,
+                systematic_counts=0)
     if launches != want:
         raise AssertionError(f"sharded PF: launches {launches}, expected {want}")
     (fin0, out0), ms0, wall0 = timed(lambda: run(None))
@@ -2880,6 +2972,22 @@ def main():
               mp["window"]["plain_ms"], mp["window"]["bound"], None,
               kernel_ms=mp["window"]["kernel_ms"], shape=mp["window"]["shape"],
               launches_by_path={"pf-1M-60s-mesh4": mpl["expand_gather_window_call"]}),
+    ] + [
+        # K13 / K14, the GPS update's weights and counts (no TPU kernel: the
+        # JAX package leaves both to XLA), at 2^20, with their times at a
+        # bank that does not tile (10^6) and K14's at the SLAM + PF fleet's
+        # (8, 1024) banks; launches by path
+        dict(entry(name, "pf_update.cu", "", pf_launch[name], pk[k]["err"], pk[k]["ms"],
+                   pk[k]["plain_ms"], pk[k]["bound"], None,
+                   **{x: {**{y: v for y, v in pk[k][x].items() if y != "bound"},
+                          "bound_ms": pk[k][x]["bound"][0]}
+                      for x in ("non_tiling", "fleet") if x in pk[k]},
+                   launches_by_path={"pf-per-tick": pt_launch[name], "combined-1M": cb_launch[name],
+                                     "cli-pf": cli["cli-pf"][name], "pf-1M-60s-mesh4": mpl[name],
+                                     **({"slam-pf-fleet8-systematic": s12["fleet_k14"]["systematic"]}
+                                        if k == "K14" else {})}),
+             replaces=None)
+        for k, name in (("K13", "gps_weights_call"), ("K14", "systematic_counts"))
     ] + [
         entry("hungarian_lanes", "slam_da.cu", "slam_da_kernels.py:616",
               l256["full"]["hungarian_lanes"], k256["K11"]["err"], k256["K11"]["ms"],

@@ -15,6 +15,7 @@ library as ``lib<name>.log``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,12 +30,13 @@ BUILD = PKG / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # per-library extra flags: the DA kernel's gate/cost arithmetic, the PF
-# kernels' motion, jitter and generator arithmetic and the two filter tick
+# kernels' motion, jitter, generator and GPS-weight arithmetic and the two filter tick
 # kernels round every product (no FMA contraction), like the plain PyTorch
 # versions' elementwise ops
 EXTRA_FLAGS = {"slam_da": ["-fmad=false"], "slam_update": [], "slam_downdate": [],
                "slam_marginal": [], "pf_predict": ["-fmad=false"],
-               "pf_resample": ["-fmad=false"], "loc_tick": ["-fmad=false"],
+               "pf_resample": ["-fmad=false"], "pf_update": ["-fmad=false"],
+               "loc_tick": ["-fmad=false"],
                "ekf15_tick": ["-fmad=false"]}
 
 _libs: dict = {}
@@ -116,6 +118,18 @@ def build_all() -> dict:
             _finish(name, job)
         times[name] = time.perf_counter() - t0
     return times
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_words(name: str, symbol: str, *shape: int) -> int:
+    """Words of device scratch a launch of ``csrc/<name>.cu`` takes at
+    ``shape``: its host-side layout function ``symbol`` (ints in, a long
+    long out), asked once per shape."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(shape)
+        fn.restype = ctypes.c_longlong
+    return int(fn(*shape))
 
 
 def check(rc: int, what: str) -> None:

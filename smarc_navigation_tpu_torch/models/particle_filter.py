@@ -441,19 +441,6 @@ def step(
 # the kernel path
 # ---------------------------------------------------------------------------
 
-def _fast_logw(parts, gps_map_xy, params):
-    """GPS log-weights of the kernel path without the reference's constant
-    log-normalizer (as its fast path). The map-frame position is written out
-    elementwise in a fixed order, so a column shard of the bank gets the
-    same bits as the whole bank."""
-    r, t = params.r_m2o, params.t_m2o
-    x, y, z = parts[0], parts[1], parts[2]
-    dx = gps_map_xy[0] - (r[0, 0] * x + r[0, 1] * y + r[0, 2] * z + t[0])
-    dy = gps_map_xy[1] - (r[1, 0] * x + r[1, 1] * y + r[1, 2] * z + t[1])
-    logw = -0.5 * (dx * dx + dy * dy) / params.meas_var
-    return torch.where(torch.isfinite(logw), logw, -math.inf)
-
-
 def _jitter_sd(params):
     sd = torch.sqrt(params.res_noise_cov)
     return torch.stack([sd[0], sd[1], sd[5]])
@@ -463,12 +450,15 @@ def _update_resample_fast(parts, gps_map_xy, u, seed, params):
     """Weights -> systematic resample with the x/y/yaw jitter and the
     post-resample moment sums fused into the gather (K7). ``u`` is the
     resample uniform, ``seed`` the jitter seed. z/roll/pitch are not
-    jittered: the next predict substitutes them from odometry. The counts
-    and the gather are ``pf_kernels.systematic_resample_gather``'s, each
-    under a span of its own."""
+    jittered: the next predict substitutes them from odometry. On the card
+    an update is three kernels, each under a span of its own: the weights
+    (K13, ``pf_kernels.gps_weights_call``), the counts (K14, behind
+    ``resampling.systematic_counts``, called through the module so that an
+    observer of that attribute sees every resample) and the gather (K7); on
+    the CPU their plain versions."""
     with trace.span("pf.update"):
         with trace.span("pf.weights"):
-            w = resampling.normalize_weights_det(_fast_logw(parts, gps_map_xy, params))
+            w = pf_kernels.gps_weights_call(parts, gps_map_xy, params)
         with trace.span("pf.counts"):
             m_cum = resampling.systematic_counts(w, u)
         with trace.span("pf.gather"):
@@ -491,7 +481,7 @@ def _update_resample_fast_shard(parts, gps_map_xy, u, seed, params, axis_name):
       ``seed_off``: K7(jitter) is K8(K7) bit for bit.
 
     Returns (shards, each shard's (8, ns / SUM_GROUP) moment partials)."""
-    logw = [_fast_logw(p, g, prm) for p, g, prm in zip(parts, gps_map_xy, params)]
+    logw = [pf_kernels.fast_logw(p, g, prm) for p, g, prm in zip(parts, gps_map_xy, params)]
     w = resampling.normalize_weights_det_shard(logw, axis_name)
     ns = parts[0].shape[1]
     parts = resample_dist.systematic_gather_shard(

@@ -1,12 +1,16 @@
-"""K5-K8: the particle-filter kernels (PyTorch port of
+"""K5-K8 and K13: the particle-filter kernels (PyTorch port of
 ``smarc_navigation_tpu/ops/pf_kernels.py``).
 
 ``predict_call_multi`` (K5) and ``predict_call`` (K6) launch
 ``csrc/pf_predict.cu``; ``expand_gather_call`` (K7), its window form
 ``expand_gather_window_call`` (a particle shard's slots from a
 halo-extended window, ``parallel.resample_dist``) and
-``jitter_moments_call`` (K8) launch ``csrc/pf_resample.cu``. Each wrapper
-checks its arguments on every device, takes its plain PyTorch version
+``jitter_moments_call`` (K8) launch ``csrc/pf_resample.cu``;
+``gps_weights_call`` (K13, the GPS update's normalised weights, which the
+JAX package leaves to XLA) launches ``csrc/pf_update.cu``, beside K14
+(``resampling.systematic_counts``). Each wrapper
+checks its arguments on every device (K13 on CUDA tensors: on the CPU its
+plain version takes what it took before it), takes its plain PyTorch version
 (``<name>_reference``, same signature) for CPU tensors, and launches the
 kernel or raises for CUDA tensors; each counts its launches.
 
@@ -364,6 +368,72 @@ def fused_predict_moments(parts, odom, dt, motion_sd, seed, do_noise=True):
 
 
 # ---------------------------------------------------------------------------
+# K13: the GPS update's normalised weights
+# ---------------------------------------------------------------------------
+
+def fast_logw(parts, gps_map_xy, params):
+    """GPS log-weights of the kernel path without the reference's constant
+    log-normalizer (as its fast path). The map-frame position is written out
+    elementwise in a fixed order, so a column shard of the bank gets the
+    same bits as the whole bank."""
+    r, t = params.r_m2o, params.t_m2o
+    x, y, z = parts[0], parts[1], parts[2]
+    dx = gps_map_xy[0] - (r[0, 0] * x + r[0, 1] * y + r[0, 2] * z + t[0])
+    dy = gps_map_xy[1] - (r[1, 0] * x + r[1, 1] * y + r[1, 2] * z + t[1])
+    logw = -0.5 * (dx * dx + dy * dy) / params.meas_var
+    return torch.where(torch.isfinite(logw), logw, -math.inf)
+
+
+def gps_weights_call_reference(parts, gps_map_xy, params):
+    """Plain PyTorch version of ``gps_weights_call``."""
+    return resampling.normalize_weights_det(fast_logw(parts, gps_map_xy, params))
+
+
+def gps_weights_call(
+    parts: torch.Tensor,        # (6, N) f32 bank
+    gps_map_xy: torch.Tensor,   # (2,) f32 map-frame fix
+    params,                     # PFParams: r_m2o (3, 3), t_m2o (3,), meas_var () f32
+):
+    """The GPS update's normalised weights (N,) of a bank:
+    ``resampling.normalize_weights_det(fast_logw(parts, gps_map_xy,
+    params))`` bit for bit, in one launch (csrc/pf_update.cu): the
+    log-weights in ``fast_logw``'s order of operations, the non-finite
+    guard, the max, exp(logw − max) + 1e-30 and ``tree_sum``'s folds, at
+    any N. The rotation, the fix and ``meas_var`` are read on the device (no
+    host sync). CPU tensors take the plain version as they are."""
+    if parts.device.type == "cpu":
+        return gps_weights_call_reference(parts, gps_map_xy, params)
+    dev, f32 = parts.device, torch.float32
+    if dev.type != "cuda":
+        raise ValueError(f"gps_weights_call runs on CUDA or CPU tensors, not {dev}")
+    n = parts.shape[1] if parts.dim() == 2 else -1
+    _tensors.check(parts, "parts", (6, n), f32, dev)
+    _tensors.check(gps_map_xy, "gps_map_xy", (2,), f32, dev)
+    _tensors.check(params.r_m2o, "r_m2o", (3, 3), f32, dev)
+    _tensors.check(params.t_m2o, "t_m2o", (3,), f32, dev)
+    _tensors.check(params.meas_var, "meas_var", (), f32, dev)
+    out = torch.empty(n, dtype=f32, device=dev)
+    scratch = torch.empty(_build.scratch_words("pf_update", "pf_weights_scratch_words", n),
+                          dtype=f32, device=dev)
+    fn = _build.load("pf_update").pf_weights_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
+    P = _tensors.ptr
+    rc = fn(_tensors.device_index(dev), _tensors.stream(dev), n, P(parts), P(gps_map_xy),
+            P(params.r_m2o), P(params.t_m2o), P(params.meas_var), P(out), P(scratch))
+    _build.check(rc, "gps_weights_call")
+    _K13.launches += 1
+    return out
+
+
+# counted on the wrapper itself, not through its module name, which an
+# observer may have replaced (as for K14, ``resampling.systematic_counts``)
+_K13 = gps_weights_call
+_K13.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K7 / K8: ancestor expansion + gather, resample jitter + moments
 # ---------------------------------------------------------------------------
 
@@ -529,8 +599,8 @@ jitter_moments_call.launches = 0
 
 def systematic_resample_gather(parts, weights, u, jitter_sd=None, seed=None):
     """Systematic resample + gather -> (6, N) (or (parts, sums) with
-    ``jitter_sd``): counts in plain torch (``resampling.systematic_counts``,
-    as the reference leaves them to XLA), expansion and gather in K7.
+    ``jitter_sd``): counts by ``resampling.systematic_counts`` (K14 on the
+    card), expansion and gather in K7.
     Ancestors are ``resampling.systematic_resample``'s for the same ``u``
     (a scalar uniform or a ``torch.Generator``)."""
     m_cum = resampling.systematic_counts(weights, u)

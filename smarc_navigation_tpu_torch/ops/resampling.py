@@ -17,12 +17,20 @@ package's ``jnp.cumsum`` adds on the CPU, ``prefix_sum``), so a weight
 vector gives the reference's value bit for bit where the operations are
 elementwise. ``tree_sum_shard`` and ``normalize_weights_det_shard`` are
 their shard bodies over a list of contiguous shards (``parallel.mesh``).
+
+``systematic_counts`` is K14 on CUDA tensors (``csrc/pf_update.cu``: the
+blocked CDF in the same order, the counts and their running max in one
+launch; none in the JAX package, which leaves the counts to XLA) and its
+plain version, ``systematic_counts_reference``, on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from .. import _build, _tensors
 from ..parallel import mesh
 
 # Block size of the deterministic two-level prefix sum (see the reference:
@@ -150,12 +158,8 @@ def normalize_weights_det_shard(logw, axis_name: str = mesh.PARTICLE_AXIS) -> li
     return [w / t[..., None] for w, t in zip(ws, tree_sum_shard(ws, axis_name))]
 
 
-def systematic_counts(weights: torch.Tensor, u) -> torch.Tensor:
-    """Monotone cumulative ancestor counts m_cum[i] = #outputs owned by
-    ancestors 0..i (int32, ending at N): cummax(clip(ceil(N·cdf − u))).
-
-    The cummax repair is the reference's blockwise form (within CDF_BLOCK
-    rows, then a carry max across rows), equal to the global running max."""
+def systematic_counts_reference(weights: torch.Tensor, u) -> torch.Tensor:
+    """Plain PyTorch version of ``systematic_counts``."""
     n = weights.shape[-1]
     u = _uniforms(u, weights.shape[:-1], weights)
     cdf = blocked_cdf(weights).clone()
@@ -172,6 +176,50 @@ def systematic_counts(weights: torch.Tensor, u) -> torch.Tensor:
     prev = torch.cat([carry.new_full(carry.shape[:-1] + (1,), torch.iinfo(torch.int32).min),
                       carry[..., :-1]], -1)
     return torch.maximum(rows, prev[..., None]).reshape(m_cum.shape)
+
+
+def systematic_counts(weights: torch.Tensor, u) -> torch.Tensor:
+    """Monotone cumulative ancestor counts m_cum[i] = #outputs owned by
+    ancestors 0..i (int32, ending at N): cummax(clip(ceil(N·cdf − u))) over
+    ``blocked_cdf``, per bank of the leading axes (``u`` one uniform per
+    bank, a scalar for one bank, or a ``torch.Generator``).
+
+    The cummax repair is the reference's blockwise form (within CDF_BLOCK
+    rows, then a carry max across rows), equal to the global running max.
+    On CUDA tensors K14 computes it, bit for bit the plain version, for
+    float32 weights of any shape; CPU tensors take the plain version as
+    they are."""
+    if weights.device.type == "cpu":
+        return systematic_counts_reference(weights, u)
+    dev, shape = weights.device, tuple(weights.shape)
+    if dev.type != "cuda":
+        raise ValueError(f"systematic_counts runs on CUDA or CPU tensors, not {dev}")
+    if weights.dim() < 1 or shape[-1] < 1:
+        raise ValueError(f"systematic_counts: weights of shape {shape}, expected (..., N)")
+    n = shape[-1]
+    weights = _tensors.check(weights.contiguous(), "weights", shape, torch.float32, dev)
+    u = _uniforms(u, shape[:-1], weights).contiguous()
+    banks = weights.numel() // n
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
+    fn = _build.load("pf_update").pf_counts_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+            + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+    words = _build.scratch_words("pf_update", "pf_counts_scratch_words", banks, n)
+    scratch = torch.empty(words, dtype=torch.float32, device=dev) if words else None
+    P = _tensors.ptr
+    rc = fn(_tensors.device_index(dev), _tensors.stream(dev), banks, n, P(weights), P(u),
+            P(out), P(scratch))
+    _build.check(rc, "systematic_counts")
+    _K14.launches += 1
+    return out
+
+
+# the wrapper counts its launches on itself, not through its module name,
+# which an observer of the resamples may have replaced
+_K14 = systematic_counts
+_K14.launches = 0
 
 
 def _inverse_cdf(weights: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:

@@ -39,9 +39,12 @@ Spans, each in the function named:
 - ``pf.predict``: ``models/particle_filter._run_segments``, each K5 call
   (``predict_call_multi``), one per segment.
 - ``pf.update``: ``models/particle_filter._update_resample_fast``, one
-  GPS update; inside it ``pf.weights`` (the log-weights and
-  ``normalize_weights_det``), ``pf.counts`` (``systematic_counts`` with
-  the blocked CDF) and ``pf.gather`` (K7's call, ``expand_gather_call``).
+  GPS update; inside it ``pf.weights`` (K13's call,
+  ``pf_kernels.gps_weights_call``: the log-weights and
+  ``normalize_weights_det``'s order), ``pf.counts`` (K14's call behind
+  ``resampling.systematic_counts``: the blocked CDF, the counts, their
+  running max) and ``pf.gather`` (K7's call, ``expand_gather_call``). On
+  the CPU the first two are the plain versions.
 - ``pf.finalize``: ``models/particle_filter._run_segments``, once per
   run: the stack of the moment partials and ``finalize_moments``.
 
