@@ -18,9 +18,8 @@ Phases (any failure exits nonzero; nothing is caught):
      D=198), on the state of the real headline fleet after 50 ticks: K1
      ``da_lanes`` in MBES form (with predict and band) and in FLS form, K2
      ``sequential_update_fleet`` (with a8, band, cand) and K3
-     ``sequential_update``, each on its default streamed schedule (phase 1
-     + K12 ``symmetric_downdate``) and bitwise equal to the one-kernel
-     schedule (Σ, μ, band), timed beside it; K12 on phase 1's factors, timed
+     ``sequential_update``, each phase 1 + K12 ``symmetric_downdate``, Σ
+     exactly symmetric; K12 on phase 1's factors, timed
      beside ``torch.baddbmm`` and beside its memory path alone (K12 at one
      factor row, ``Tensor.clone`` of Σ); K11 ``hungarian_lanes`` on K1's own
      (B, L+M, M) cost tables (the JV's share of K1) and K1 on one mission (the
@@ -33,8 +32,7 @@ Phases (any failure exits nonzero; nothing is caught):
      ``sequential_update_marginal_fleet`` (dim 3 and 2, with and without a8;
      and at M=16, ``EKFSlamConfig()``'s max_obs, on the DA selection of the
      same fleet replayed at M=16), K11 ``hungarian_lanes`` on the DA stage's
-     own (B, L+M, M) cost tables, K2 at D=774 (streamed schedule bitwise equal
-     to the one-kernel one: Σ, μ, band; Σ exactly symmetric) and K12
+     own (B, L+M, M) cost tables, K2 at D=774 (Σ exactly symmetric) and K12
      ``symmetric_downdate`` on K2's phase-1 factors, timed beside
      ``torch.baddbmm`` computing Σ − ½(UᵀV + VᵀU) (the yardstick; the port
      never calls it);
@@ -47,15 +45,13 @@ Phases (any failure exits nonzero; nothing is caught):
   4. the slice against its plain version: ``run_fleet`` of 8 missions over
      100 ticks on the card (kernels) and on the CPU (plain versions);
  4b. the same at L=256 for ``run_fleet(update_mode="marginal")`` and the
-     full ``run_fleet`` (streamed schedule);
+     full ``run_fleet`` (phase 1 + K12);
   5. the headline replay (``slam_fleet_timelines(combined_slam_cfg(), 60, 128)``
      through ``run_fleet``), timed with CUDA events; K1, K2 (phase 1) and
      K12 must each have launched once per tick;
   6. one single-mission ``step`` on the card: K1 + K2 (phase 1 + K12) at B=1;
  5b. the L=256 full replay (``slam_fleet_timelines(cfg256, 60, 32)``, T=601):
-     K1, K2 (phase 1) and K12 once per tick; then the streamed and the
-     one-kernel K2 schedule over the same first ticks, each on its own graph
-     key, bitwise equal;
+     K1, K2 (phase 1) and K12 once per tick;
  5c. the L=256 marginal replay on the same timeline: K1 and K4 once per tick;
   7. each PF kernel against its plain version on the card at N = 2^20, on
      the 60 s PF mission's bank and tick 0-11 parameters: the generator's
@@ -111,8 +107,8 @@ Phases (any failure exits nonzero; nothing is caught):
  16. K1 and K2 (phase 1 + K12) at the raycast fleet's shape (B=1024 missions,
      L=32 slots, M=8, D=102), on its state after 50 ticks: K1 in its MBES
      form with the band and no predict (the raycast tick predicts Σ in
-     PyTorch), K2 streamed bitwise its one-kernel schedule, each against
-     its plain version as in phase 3, K12 beside ``torch.baddbmm``; device
+     PyTorch), K2 (phase 1 + K12), each against its plain version as in
+     phase 3, K12 beside ``torch.baddbmm``; device
      times and bounds;
  17. the raycast fleet ``raycast_fleet_inputs(1024, 301)`` (``bench.py``'s
      raycast cell: 64 beams, 16 rocks per mission, the seed-1 mission's
@@ -197,9 +193,8 @@ replay and the eager call; the timed replay is a cache hit, and the
 profiled one after it gives each path kernel's share of it and the card's
 busy share (all kernels' device time over the replay time).
 Every kernel's ``ms`` is its device time from ``torch.profiler`` (the
-CUPTI trace of 30 launches, or 5 for the one-kernel K2 at D=774); K2's and
-K3's are their streamed path's, phase 1 + K12, with the one-kernel
-schedule's beside them, K7's all the device work of a call (its kernel
+CUPTI trace of 30 launches); K2's and K3's are phase 1 + K12, K7's all
+the device work of a call (its kernel
 and the wrapper's zero fill of its group counters; the kernel alone in
 ``kernel_ms``), and K12's line holds its L=64, L=256 and B=1024 numbers;
 the back-to-back wall time per wrapper call is printed beside it, and
@@ -251,7 +246,6 @@ PF_MEAN_TOL = 1e-3
 PF_N = 1 << 20
 L256_B = 32        # the reference's L=256 fleet (bench.py sec_slam256)
 T_WARM = 50        # ticks replayed before a kernel phase takes the fleet's state
-N_ONE_KERNEL = 20  # ticks of the L=256 replay timed on the one-kernel K2 schedule
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 # H100 SXM integer ALU (shifts, logic, adds): 64 lanes per SM per clock, 132 SMs, 1.98 GHz
@@ -1157,7 +1151,7 @@ def k12_phase(Sigma, U, V, P1, act, what):
 def slam256_kernels_phase(dev, cfg, params, tl):
     """Phase 3b: K1 in both forms (pose rows, full Σ; MBES and FLS), K4 (and
     at M=16), K11, K2 at D=774 and K12 against their plain versions at
-    L=256, B=32; K2 streamed == one-kernel."""
+    L=256, B=32."""
     import torch
 
     from smarc_navigation_tpu_torch.io.workloads import slam_fleet_timelines
@@ -1288,35 +1282,29 @@ def slam256_kernels_phase(dev, cfg, params, tl):
                                     dict(fls_kw, pose_rows=None, band=band), zffm, 2)
     k2_args = (st_p.Sigma, st_p.mu, H_sel, SinvH, nu_sel, (6 + 3 * slot).contiguous(), do, add,
                new_cov, cand, a8f, band)
-    one = K2.sequential_update_fleet(*k2_args, streamed=False)
-    strm = K2.sequential_update_fleet(*k2_args, streamed=True)
+    strm = K2.sequential_update_fleet(*k2_args)
     torch.cuda.synchronize()
-    for g, o, name in zip(strm, one, ("Sigma", "mu", "band")):
-        if not bitwise(g, o):
-            raise AssertionError(f"K2 at D={D}: streamed {name} differs from the one-kernel schedule's")
     if not torch.equal(strm[0], strm[0].transpose(1, 2)):
         raise AssertionError(f"K2 at D={D}: Sigma not exactly symmetric")
-    want2 = K2.sequential_update_fleet_reference(*k2_args, streamed=False)
+    want2 = K2.sequential_update_fleet_reference(*k2_args)
     e2 = max(check(max_err(strm[0], want2[0]), "K2 D=774 Sigma"),
              check(max_err(strm[1], want2[1]), "K2 D=774 mu"),
              check(max_err(band_entries(strm[2]), band_entries(want2[2])), "K2 D=774 band"))
     _, _, P1, U, V, act = K2.phase1(*k2_args)
     res["K12"] = k12_phase(st_p.Sigma, U, V, P1, act, f"L={L}")
-    res["K2_774"] = dict(err=e2, ms=device_ms(lambda: K2.sequential_update_fleet(
-        *k2_args, streamed=False), 5, "update_kernel"),
-        phase1_ms=device_ms(lambda: K2.phase1(*k2_args), 30, "phase1_kernel"),
-        bound=bound(nbytes(*k2_args, *one), k2_flops(B, D, M, 3, True)))
+    phase1_ms = device_ms(lambda: K2.phase1(*k2_args), 30, "phase1_kernel")
+    res["K2_774"] = dict(err=e2, ms=phase1_ms + res["K12"]["ms"], phase1_ms=phase1_ms,
+                         bound=bound(nbytes(*k2_args, *strm), k2_flops(B, D, M, 3, True)))
     for k in ("K4",):
         v = res[k]
         print(f"{k}: max err {v['err']:.3e}; kernel {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms "
               f"per call back to back), plain {v['plain_ms']:.4f} ms, bound {v['bound'][0]:.4f} ms "
               f"({v['bound'][1]})", flush=True)
     v = res["K2_774"]
-    print(f"K2 at D={D} B={B}: streamed schedule phase 1 {v['phase1_ms']:.4f} ms + K12 "
-          f"{res['K12']['ms']:.4f} ms = {v['phase1_ms'] + res['K12']['ms']:.4f} ms device; "
-          f"one-kernel schedule {v['ms']:.4f} ms (max err vs plain {v['err']:.3e}, bound "
-          f"{v['bound'][0]:.4f} ms, {v['bound'][1]}); streamed == one-kernel: Sigma, mu and band "
-          f"bitwise, Sigma exactly symmetric ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"K2 at D={D} B={B}: phase 1 {v['phase1_ms']:.4f} ms + K12 {res['K12']['ms']:.4f} ms "
+          f"= {v['ms']:.4f} ms device (max err vs plain {v['err']:.3e}, bound "
+          f"{v['bound'][0]:.4f} ms, {v['bound'][1]}); Sigma exactly symmetric "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return res
 
 
@@ -1467,7 +1455,6 @@ def slam256_replays(dev, cfg, params, tl, counters):
     import torch
 
     from smarc_navigation_tpu_torch.models import ekf_slam as S
-    from smarc_navigation_tpu_torch.ops import slam_kernels as K2
 
     B, T = tl.ticks.shape
     S.run_fleet(tl.map(lambda x: x[:, :10]), params, cfg)                        # warm-up
@@ -1503,27 +1490,6 @@ def slam256_replays(dev, cfg, params, tl, counters):
         graph[mode]["share"] = device_share(
             lambda: S.run_fleet(tl, params, cfg, update_mode=mode), kernels, ms,
             f"L=256 {mode} replay (graphed)")
-
-    # the two K2 schedules of the full replay over the same first ticks, each
-    # the first call of its own graph key (eager warm-up + capture): the key
-    # carries the schedule, so the one-kernel call captures anew and runs no K12
-    from smarc_navigation_tpu_torch.utils import graphs
-
-    head = tl.map(lambda x: x[:, :N_ONE_KERNEL])
-    runs = {}
-    for name, streamed in (("streamed", True), ("one-kernel", False)):
-        n_cap, K2.symmetric_downdate.launches = graphs.captures, 0
-        runs[name] = timed(lambda: S.run_fleet(head, params, cfg, streamed=streamed))
-        want_k12 = N_ONE_KERNEL if name == "streamed" else 0
-        if graphs.captures != n_cap + 1 or K2.symmetric_downdate.launches != want_k12:
-            raise AssertionError(f"L=256 {name} schedule: {graphs.captures - n_cap} captures, "
-                                 f"{K2.symmetric_downdate.launches} K12 launches")
-    n_out = assert_bitwise(runs["streamed"][0], runs["one-kernel"][0],
-                           "L=256 full replay, streamed vs one-kernel schedule")
-    print(f"L=256 full replay, first {N_ONE_KERNEL} ticks (first call: eager + capture): streamed "
-          f"schedule {runs['streamed'][1] * 1e3 / N_ONE_KERNEL:.1f} us/tick, one-kernel schedule "
-          f"{runs['one-kernel'][1] * 1e3 / N_ONE_KERNEL:.1f} us/tick; all {n_out} outputs bitwise "
-          f"equal; one capture each", flush=True)
     return launches, graph
 
 
@@ -1814,8 +1780,7 @@ FLEET_PF_TOL = 1e-2
 def raycast_kernels_phase(dev):
     """Phase 16: K1 and K2 (phase 1 + K12) at the raycast fleet's shape
     (B=1024, L=32, M=8, D=102) on its state after T_WARM ticks, against their
-    plain versions; K2 streamed == one-kernel bitwise; device times and
-    bounds."""
+    plain versions; device times and bounds."""
     import torch
 
     from smarc_navigation_tpu_torch.io.workloads import raycast_fleet_inputs
@@ -1848,11 +1813,7 @@ def raycast_kernels_phase(dev):
     k2_args = (st_p.Sigma, st_p.mu, H_sel, SinvH, nu_sel, (6 + 3 * slot).contiguous(), do, add,
                c.new_cov, cand, None, band)
     strm = K2.sequential_update_fleet(*k2_args)
-    one = K2.sequential_update_fleet(*k2_args, streamed=False)
     torch.cuda.synchronize()
-    for g, o, name in zip(strm, one, ("Sigma", "mu", "band")):
-        if not bitwise(g, o):
-            raise AssertionError(f"K2 at B={B}: streamed {name} differs from the one-kernel schedule's")
     if not torch.equal(strm[0], strm[0].transpose(1, 2)):
         raise AssertionError(f"K2 at B={B}: Sigma not exactly symmetric")
     want = K2.sequential_update_fleet_reference(*k2_args)
@@ -1869,16 +1830,13 @@ def raycast_kernels_phase(dev):
     res = dict(K1=k1, K12=k12, K2=dict(
         err=e2, ms=t["phase1_kernel"] + t["downdate_kernel"], phase1_ms=t["phase1_kernel"],
         downdate_ms=t["downdate_kernel"], wall_ms=wall_ms(k2, 50),
-        one_kernel_ms=device_ms(lambda: K2.sequential_update_fleet(*k2_args, streamed=False), 30,
-                                "update_kernel"),
         plain_ms=wall_ms(lambda: K2.sequential_update_fleet_reference(*k2_args), 5),
         bound=bound(nbytes(*k2_args, *strm), k2_flops(B, D, M, 3, False)), shape=(B, L, M)))
     v = res["K2"]
     print(f"K2 at the raycast fleet's shape B={B} D={D} M={M} ({int(do.sum())} updates, "
           f"{int(add.sum())} adds): max err vs plain {e2:.3e}; phase 1 {v['phase1_ms']:.4f} + K12 "
           f"{v['downdate_ms']:.4f} = {v['ms']:.4f} ms device ({v['wall_ms']:.4f} ms per call back "
-          f"to back), one-kernel schedule {v['one_kernel_ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, "
-          f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}); streamed == one-kernel bitwise "
+          f"to back), plain {v['plain_ms']:.3f} ms, bound {v['bound'][0]:.4f} ms ({v['bound'][1]}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return res
 
@@ -2727,12 +2685,8 @@ def main():
     lm_ix = 6 + 3 * slot
     k2_args = (st_p.Sigma, st_p.mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_cov,
                cand, a8, band)
-    got2 = K2.sequential_update_fleet(*k2_args)                   # streamed: phase 1 + K12
-    one2 = K2.sequential_update_fleet(*k2_args, streamed=False)   # the one-kernel schedule
+    got2 = K2.sequential_update_fleet(*k2_args)                   # phase 1 + K12
     torch.cuda.synchronize()
-    for g, o, name in zip(got2, one2, ("Sigma", "mu", "band")):
-        if not bitwise(g, o):
-            raise AssertionError(f"K2 at L={L}: streamed {name} differs from the one-kernel schedule's")
     want2 = K2.sequential_update_fleet_reference(*k2_args)
     errs = [max_err(got2[0], want2[0]), max_err(got2[1], want2[1]),
             max_err(band_entries(got2[2]), band_entries(want2[2]))]
@@ -2748,15 +2702,13 @@ def main():
 
     k2_t = path_ms(k2, 30, ("phase1_kernel", "downdate_kernel"))
     k2_ms, k2_wall = k2_t["phase1_kernel"] + k2_t["downdate_kernel"], wall_ms(k2, 50)
-    k2_one_ms = device_ms(lambda: K2.sequential_update_fleet(*k2_args, streamed=False), 30,
-                          "update_kernel")
     k2_plain_ms = wall_ms(lambda: K2.sequential_update_fleet_reference(*k2_args), 10)
     k2_bound = bound(nbytes(*k2_args, *got2), k2_flops(B, 6 + 3 * L, M, 3, True))
     print(f"K2 sequential_update_fleet: max err Sigma {errs[0][0]:.3e} mu {errs[1][0]:.3e} "
-          f"band {errs[2][0]:.3e}; streamed schedule phase 1 {k2_t['phase1_kernel']:.4f} + K12 "
+          f"band {errs[2][0]:.3e}; phase 1 {k2_t['phase1_kernel']:.4f} + K12 "
           f"{k2_t['downdate_kernel']:.4f} = {k2_ms:.4f} ms device ({k2_wall:.4f} ms per call back "
-          f"to back), one-kernel schedule {k2_one_ms:.4f} ms, plain {k2_plain_ms:.3f} ms, bound "
-          f"{k2_bound[0]:.4f} ms ({k2_bound[1]}); streamed == one-kernel bitwise", flush=True)
+          f"to back), plain {k2_plain_ms:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})",
+          flush=True)
     _, _, P1, U, V, act = K2.phase1(*k2_args)
     k12_64 = k12_phase(st_p.Sigma, U, V, P1, act, f"L={L}")
 
@@ -2765,11 +2717,8 @@ def main():
     st_pp, _ = S._fleet_predict(st, pose_t, valid_t, params, predict_sigma=True)
     k3_args = (st_pp.Sigma[b].contiguous(), st_pp.mu[b].contiguous(), H_sel[b],
                SinvH[b], nu_sel[b], lm_ix[b], do[b], add[b], new_cov)
-    got3 = K2.sequential_update(*k3_args)                          # streamed: phase 1 + K12
-    one3 = K2.sequential_update_fleet(*(x[None] for x in k3_args[:8]), new_cov, streamed=False)
+    got3 = K2.sequential_update(*k3_args)                          # phase 1 + K12
     torch.cuda.synchronize()
-    if not (bitwise(got3[0], one3[0][0]) and bitwise(got3[1], one3[1][0])):
-        raise AssertionError("K3: streamed Sigma or mu differs from the one-kernel schedule's")
     want3 = K2.sequential_update_reference(*k3_args)
     errs3 = [max_err(got3[0], want3[0]), max_err(got3[1], want3[1])]
     for (err, tol), name in zip(errs3, ["Sigma", "mu"]):
@@ -2782,15 +2731,12 @@ def main():
 
     k3_t = path_ms(k3, 30, ("phase1_kernel", "downdate_kernel"))
     k3_ms, k3_wall = k3_t["phase1_kernel"] + k3_t["downdate_kernel"], wall_ms(k3, 50)
-    k3_one_ms = device_ms(lambda: K2.sequential_update_fleet(
-        *(x[None] for x in k3_args[:8]), new_cov, streamed=False), 30, "update_kernel")
     k3_plain_ms = wall_ms(lambda: K2.sequential_update_reference(*k3_args), 10)
     k3_bound = bound(nbytes(*k3_args, *got3), k2_flops(1, 6 + 3 * L, M, 3, False))
     print(f"K3 sequential_update (mission {b}, {int(do[b].sum())} updates): max err "
           f"{k3_err:.3e}; phase 1 {k3_t['phase1_kernel']:.4f} + K12 {k3_t['downdate_kernel']:.4f} "
-          f"= {k3_ms:.4f} ms device ({k3_wall:.4f} ms per call back to back), one-kernel schedule "
-          f"{k3_one_ms:.4f} ms, plain {k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms "
-          f"({k3_bound[1]}); streamed == one-kernel bitwise", flush=True)
+          f"= {k3_ms:.4f} ms device ({k3_wall:.4f} ms per call back to back), plain "
+          f"{k3_plain_ms:.3f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]})", flush=True)
 
     # --- 3b. the slice-3 kernels at L=256 ---------------------------------------
     k256 = slam256_kernels_phase(dev, cfg256, params256, tl256)
@@ -2920,15 +2866,15 @@ def main():
                                 "slam-pf-fleet128": spf_launch["da_lanes"],
                                 **{p: cli[p]["da_lanes"]
                                    for p in ("cli-replay", "cli-demo", "chunked-replay")}}),
-        # K2 and K3: the streamed path's device time, phase 1 + K12
+        # K2 and K3: the device time of phase 1 + K12
         entry("sequential_update_fleet", "slam_update.cu", "slam_kernels.py:791",
               launches["sequential_update_fleet"], max(k2_err, k256["K2_774"]["err"], rk2["err"]),
               k2_ms, k2_plain_ms, k2_bound, phase1_ms=k2_t["phase1_kernel"],
-              downdate_ms=k2_t["downdate_kernel"], one_kernel_ms=k2_one_ms,
-              D774=dict(phase1_ms=k256["K2_774"]["phase1_ms"], downdate_ms=k12_256["ms"],
-                        one_kernel_ms=k256["K2_774"]["ms"], bound_ms=k256["K2_774"]["bound"][0]),
+              downdate_ms=k2_t["downdate_kernel"],
+              D774=dict(ms=k256["K2_774"]["ms"], phase1_ms=k256["K2_774"]["phase1_ms"],
+                        downdate_ms=k12_256["ms"], bound_ms=k256["K2_774"]["bound"][0]),
               B1024=dict(ms=rk2["ms"], phase1_ms=rk2["phase1_ms"], downdate_ms=rk2["downdate_ms"],
-                         one_kernel_ms=rk2["one_kernel_ms"], plain_ms=rk2["plain_ms"],
+                         plain_ms=rk2["plain_ms"],
                          bound_ms=rk2["bound"][0], bound_by=rk2["bound"][1],
                          max_abs_err=rk2["err"], shape=list(rk2["shape"])),
               launches_by_path={"slam-fleet128-L64": launches["sequential_update_fleet"],
@@ -2940,7 +2886,6 @@ def main():
         entry("sequential_update", "slam_update.cu", "slam_kernels.py:213",
               launches["sequential_update"], k3_err, k3_ms, k3_plain_ms, k3_bound,
               phase1_ms=k3_t["phase1_kernel"], downdate_ms=k3_t["downdate_kernel"],
-              one_kernel_ms=k3_one_ms,
               launches_by_path={p: cli[p]["sequential_update"]
                                 for p in ("cli-replay", "cli-demo", "chunked-replay")}),
         entry("sequential_update_marginal_fleet", "slam_marginal.cu", "slam_kernels.py:1124",

@@ -1,4 +1,4 @@
-// K12: the symmetric covariance downdate of K2's streamed schedule.
+// K12: the symmetric covariance downdate of K2 (phase 1 writes its factors).
 //
 // Replaces the TPU kernel smarc_navigation_tpu/ops/slam_kernels.py::
 // _make_downdate_kernel (phase 2 of sequential_update_fleet(streamed=True),
@@ -9,10 +9,11 @@
 // rows P (Σ'[i, c] = P[i, c] for i < 6, P[c, i] for c < 6) and the diagonal
 // of the new-landmark activations. Every entry is ½(s_ic + s_ci),
 // s = Σ' + Act − UᵀV, s_ic = Σ'(i,c) + Act(i,c) then fmaf(−u_i, v_c, ·) over
-// the factor rows in order: the fmaf sequence of K2's one-kernel epilogue
-// (csrc/slam_update.cu), so the two schedules give the same bits. (A
-// tensor-core product would sum in another order; the kernel is bound by
-// bytes, not by its FMAs.)
+// the factor rows in order, s_ci likewise with i and c swapped: entries
+// (i, c) and (c, i) take the same two chains, so Σ_out is exactly
+// symmetric, and phase 1's band (csrc/slam_update.cu) takes the same order,
+// so it holds Σ_out's entries. (A tensor-core product would sum in another
+// order; the kernel is bound by bytes, not by its FMAs.)
 //
 // Design: a persistent kernel, one block per SM. The work items are the
 // (mission, row tile, column tile) pairs of 64×64 tiles over the upper

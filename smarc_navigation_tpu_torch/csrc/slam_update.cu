@@ -1,5 +1,6 @@
-// K2 / K3: the EKF-SLAM sequential measurement update of one tick: the
-// first phase of the streamed schedule, and the one-kernel schedule.
+// K2 / K3: the EKF-SLAM sequential measurement update of one tick, phase 1:
+// the factors, μ and the landmark band. K12 (csrc/slam_downdate.cu) then
+// writes Σ from them.
 //
 // Replaces the TPU kernels smarc_navigation_tpu/ops/slam_kernels.py::
 // sequential_update_fleet (K2, pallas_call at :791, body
@@ -19,21 +20,16 @@
 // does). Update j needs only the nine (pose, slot) rows of Σ_j, assembled
 // per column from Σ' minus the earlier factors. After the M updates,
 // μ_out = μ + (cand on added slots) + Σ_j ν_jᵀ U_j with one angle wrap, and
-// every entry of the new Σ is ½(s_ic + s_ci), s = Σ' + Act − UᵀV, both
-// products taken with the same fmaf sequence (so Σ_out is exactly
-// symmetric); the (24, L) landmark band is computed by the same entry
-// function.
+// every entry of the new Σ is ½(s_ic + s_ci), s = Σ' + Act − UᵀV.
 //
-// Streamed schedule, phase 1 (``phase1_kernel``, Sigma_out null): a grid
-// of (column tile, mission) blocks writes U, V, μ, the band, the predicted
-// pose rows P and Act's diagonal; K12 (csrc/slam_downdate.cu) then writes
-// Σ_out over tiles with the same entry arithmetic. Update j at column c
-// reads column c of Σ', the earlier factors at column c, and the earlier
-// factors at the ≤ 6 + 3M pivot indices (pose rows 0-5, each update's
-// three slot rows), and the factors at the pivots depend on the pivots
-// alone. So in every block two warps step through the M updates at the
-// pivot columns (a lane per pivot, looping past 64 pivots) and publish each
-// step;
+// Phase 1 (``phase1_kernel``): a grid of (column tile, mission) blocks
+// writes U, V, μ, the band, the predicted pose rows P and Act's diagonal;
+// K12 then writes Σ_out over tiles. Update j at column c reads column c of
+// Σ', the earlier factors at column c, and the earlier factors at the
+// ≤ 6 + 3M pivot indices (pose rows 0-5, each update's three slot rows),
+// and the factors at the pivots depend on the pivots alone. So in every
+// block two warps step through the M updates at the pivot columns (a lane
+// per pivot, looping past 64 pivots) and publish each step;
 // four warps take the block's 126 columns and two halo columns, a thread
 // per column, each update as soon as the pivot step before it is out. The
 // halo serves the band entries (i, i+d) that reach past the block's last
@@ -42,18 +38,18 @@
 // loaded up front into the block's working set: shared memory, or, where
 // the set outgrows it (on the H100, M > 26 at dim 3, M > 31 at dim 2), the
 // block's slice of a device scratch buffer — slower, the same arithmetic.
-// The first phase 1 ran one block per mission with a barrier after each
-// update (128 blocks at the L=64 headline, 32 at L=256, one at B=1):
-// 263.6 µs at D=774, B=32 (NVIDIA H100 80GB HBM3, 700.00 W),
-// nearly all of it load latency on a few SMs.
+// One block per mission with a barrier after each update (128 blocks at
+// the L=64 headline, 32 at L=256, one at B=1) took 263.6 µs at D=774, B=32
+// (NVIDIA H100 80GB HBM3, 700.00 W), nearly all of it load latency on a
+// few SMs.
 //
-// One-kernel schedule (``update_kernel``, Sigma_out given): one block per
-// mission, U and V in global scratch, the whole downdate in the same block
-// (0.43 ms at the L=64 headline, 8.06 ms at D=774 on that card). It stays
-// as it was written first, the yardstick: phase 1 and K12 take every
-// product as an explicit fmaf in the order its contracted `+=`/`-=` chains
-// take them (the build keeps -fmad=true), so the schedules give the same
-// bits.
+// Every product is an explicit fmaf in a fixed order (the build keeps
+// -fmad=true, which would contract `+=` chains as it chooses). The pivot
+// lanes and the column threads run the same column step, so a pivot's
+// factors are its column's, bit for bit. Each band entry is K12's entry
+// function: Σ' + Act, then fmaf(−u_i, v_c, ·) and fmaf(−u_c, v_i, ·) over
+// the applied updates' factor rows in order, the two chains' sum halved;
+// so the band holds Σ_out's own entries.
 //
 // What bounds phase 1 on the H100: latency. Its bytes (the 6 + 3M pivot
 // rows of Σ, Σ's pose rows, U and V out) are ~1 % of the downdate's; the
@@ -68,172 +64,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // one-kernel schedule: one block per mission
-constexpr int kTile = 126;     // phase 1: the columns a block owns (a multiple of 3)
+constexpr int kTile = 126;     // the columns a block owns (a multiple of 3)
 constexpr int kCols = 128;     // ... plus two halo columns; one thread per column
 constexpr int kPivLanes = 64;  // ... and two warps for the 6 + 3M pivot columns
 constexpr int kP1Threads = kCols + kPivLanes;
 static_assert(kTile % 3 == 0 && kCols == kTile + 2, "phase-1 tiles align on landmark slots");
-
-// ---------------------------------------------------------------------------
-// one-kernel schedule: one block per mission (the yardstick, as it was)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-update_kernel(int D, int M, int dim, int L,
-              const float* __restrict__ Sigma, const float* __restrict__ mu,
-              const float* __restrict__ H_sel, const float* __restrict__ SinvH,
-              const float* __restrict__ nu, const int* __restrict__ lm_ix,
-              const bool* __restrict__ do_, const bool* __restrict__ add,
-              const float* __restrict__ new_lm_cov, const float* __restrict__ cand,
-              const float* __restrict__ a8, float* __restrict__ P,
-              float* __restrict__ U, float* __restrict__ V,
-              float* __restrict__ Sigma_out, float* __restrict__ mu_out,
-              float* __restrict__ band_out) {
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int K = M * dim;
-  const float* S = Sigma + (size_t)b * D * D;
-  const float* a8b = a8 ? a8 + (size_t)b * 128 : nullptr;
-  float* Pb = a8 ? P + (size_t)b * 6 * D : nullptr;
-  float* Ub = U + (size_t)b * K * D;
-  float* Vb = V + (size_t)b * K * D;
-  const int* lmb = lm_ix + (size_t)b * M;
-  const bool* dob = do_ + (size_t)b * M;
-  const bool* addb = add + (size_t)b * M;
-
-  // --- motion predict: pose rows of Σ' = Ã Σ Ãᵀ + R̃ ---------------------------
-  // a8 rows 0:6: cols 0:6 = A, cols 8:14 = R̃ (identity A / zero R̃ when the
-  // odometry is invalid, which makes this an exact no-op on those rows).
-  if (a8b) {
-    for (int idx = tid; idx < 6 * D; idx += blockDim.x) {
-      const int i = idx / D, c = idx % D;
-      float acc = 0.0f;
-      if (c >= 6) {
-        for (int k = 0; k < 6; ++k) acc += a8b[i * 16 + k] * S[k * D + c];
-      } else {
-        for (int k = 0; k < 6; ++k) {
-          float t = 0.0f;  // (Σ66 Aᵀ)[k][c]
-          for (int l = 0; l < 6; ++l) t += S[k * D + l] * a8b[c * 16 + l];
-          acc += a8b[i * 16 + k] * t;
-        }
-        acc += a8b[i * 16 + 8 + c];
-      }
-      Pb[i * D + c] = acc;
-    }
-    __syncthreads();
-  }
-  // Σ'(i, c): predicted pose rows, their transpose in the pose columns
-  auto sp = [&](int i, int c) -> float {
-    if (Pb) {
-      if (i < 6) return Pb[i * D + c];
-      if (c < 6) return Pb[c * D + i];
-    }
-    return S[(size_t)i * D + c];
-  };
-  // new-landmark diagonal blocks activated by updates 0..last
-  auto act = [&](int i, int c, int last) -> float {
-    float a = 0.0f;
-    if (i != c) return a;
-    for (int k = 0; k <= last; ++k) {
-      const int o = i - lmb[k];
-      if (addb[k] && o >= 0 && o < 3) a += new_lm_cov[o];
-    }
-    return a;
-  };
-
-  // --- M sequential updates in measurement order -------------------------------
-  for (int j = 0; j < M; ++j) {
-    const int lmj = lmb[j];
-    const float* Gj = SinvH + ((size_t)b * M + j) * dim * 9;
-    const float* Hj = H_sel + ((size_t)b * M + j) * dim * 9;
-    for (int c = tid; c < D; c += blockDim.x) {
-      if (!dob[j]) {
-        for (int d = 0; d < dim; ++d) {
-          Ub[(j * dim + d) * D + c] = 0.0f;
-          Vb[(j * dim + d) * D + c] = 0.0f;
-        }
-        continue;
-      }
-      float rows[9];
-      for (int r = 0; r < 9; ++r) {
-        const int i = r < 6 ? r : lmj + r - 6;
-        float val = sp(i, c) + act(i, c, j);
-        for (int k = 0; k < j; ++k) {
-          if (!dob[k]) continue;
-          for (int d = 0; d < dim; ++d)
-            val -= Ub[(k * dim + d) * D + i] * Vb[(k * dim + d) * D + c];
-        }
-        rows[r] = val;
-      }
-      for (int d = 0; d < dim; ++d) {
-        float kt = 0.0f, vt = 0.0f;
-        for (int r = 0; r < 9; ++r) {
-          kt += Gj[d * 9 + r] * rows[r];
-          vt += Hj[d * 9 + r] * rows[r];
-        }
-        Ub[(j * dim + d) * D + c] = kt;
-        Vb[(j * dim + d) * D + c] = vt;
-      }
-    }
-    __syncthreads();
-  }
-
-  // --- μ: landmark init on added slots, the gains' innovations, one wrap -------
-  for (int c = tid; c < D; c += blockDim.x) {
-    float m = mu[(size_t)b * D + c];
-    if (cand) {
-      for (int k = 0; k < M; ++k) {
-        const int o = c - lmb[k];
-        if (addb[k] && o >= 0 && o < 3) m += cand[((size_t)b * M + k) * 3 + o];
-      }
-    }
-    for (int k = 0; k < M; ++k) {
-      if (!dob[k]) continue;
-      for (int d = 0; d < dim; ++d)
-        m += nu[((size_t)b * M + k) * dim + d] * Ub[(k * dim + d) * D + c];
-    }
-    if (c >= 3 && c < 6) m = slam::wrap_angle(m);
-    mu_out[(size_t)b * D + c] = m;
-  }
-
-  // --- the new Σ: entry (i, c) = ½(s_ic + s_ci), s = Σ' + Act − UᵀV ------------
-  const int last = M - 1;
-  auto entry = [&](int i, int c) -> float {
-    float s_ic = sp(i, c) + act(i, c, last);
-    float s_ci = sp(c, i) + act(c, i, last);
-    for (int k = 0; k < M; ++k) {
-      if (!dob[k]) continue;
-      for (int d = 0; d < dim; ++d) {
-        const float* u = Ub + (k * dim + d) * D;
-        const float* v = Vb + (k * dim + d) * D;
-        s_ic = fmaf(-u[i], v[c], s_ic);
-        s_ci = fmaf(-u[c], v[i], s_ci);
-      }
-    }
-    return 0.5f * (s_ic + s_ci);
-  };
-  float* So = Sigma_out + (size_t)b * D * D;
-  for (int idx = tid; idx < D * D; idx += blockDim.x) So[idx] = entry(idx / D, idx % D);
-
-  // --- landmark block-diagonal band of the new Σ -------------------------------
-  if (band_out) {
-    for (int idx = tid; idx < 24 * L; idx += blockDim.x) {
-      const int row = idx / L, l = idx % L;
-      const int a = row / 8, d = row % 8;
-      float val = 0.0f;
-      if (d < 3) {
-        const int i = 6 + 3 * l + a;
-        val = entry(i, i + d < D - 1 ? i + d : D - 1);
-      }
-      band_out[(size_t)b * 24 * L + idx] = val;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// streamed schedule, phase 1: a grid of (column tile, mission) blocks
-// ---------------------------------------------------------------------------
 
 // μ_out[c]: landmark init on added slots, the gains' innovations, one wrap;
 // u(r) is factor row r at column c
@@ -256,8 +91,8 @@ __device__ __forceinline__ float mu_entry(float m, int c, int M, int dim, const 
 }
 
 // the predicted pose rows 0-5 of Σ' at column c (s(k, col) reads the raw
-// Σ[k][col]): the one-kernel predict's arithmetic, its Σ66 Ãᵀ column taken
-// once
+// Σ[k][col]): Ã Σ[0:6, c] past the pose columns; in them Ã (Σ66 Ãᵀ)[:, c]
+// + R̃[:, c], the Σ66 Ãᵀ column taken once
 template <class FS>
 __device__ __forceinline__ void predict_col(FS s, const float* a8b, int c, float* out) {
   if (c >= 6) {
@@ -329,9 +164,9 @@ struct P1Layout {
 };
 
 // one column's step j: the nine rows of Σ_j at the column from Σ' (base(q),
-// plus Act where the pivot is the column) minus the earlier factors, then
-// K_jᵀ and V_j there — the one-kernel schedule's fmaf sequence, the applied
-// updates' factor rows in order (vown(kd): V row kd at the column)
+// plus Act where the pivot is the column) minus the earlier factors, the
+// applied updates' factor rows in order, then K_jᵀ and V_j there
+// (vown(kd): V row kd at the column)
 template <int DIM, class FB, class FV>
 __device__ __forceinline__ void column_step(int j, int M, int col, float act_j, const int* piv,
                                             const int* klist, int nb, FB base, FV vown,
@@ -382,8 +217,8 @@ __device__ __forceinline__ void column_step(int j, int M, int col, float act_j, 
   }
 }
 
-// the activation update j adds on the diagonal at column c (the next term of
-// the one-kernel schedule's act(c, c, j) sum)
+// the activation update j adds on the diagonal at column c (Act sums the
+// updates' activations in update order)
 __device__ __forceinline__ float activation_step(float a, int c, int j, const int* lmb,
                                                  const bool* addb, const float* new_lm_cov) {
   const int o = c - lmb[j];
@@ -633,8 +468,8 @@ phase1_kernel(int D, int M, int L,
   if (band_out) {
     __syncthreads();
     if (banded) {
-      // the one-kernel entry's two chains for each of the three entries, interleaved over
-      // the applied updates' factor rows in order
+      // K12's entry: its two chains for each of the three entries, interleaved over the
+      // applied updates' factor rows in order
       const int l = l_lo + tid / 3, a = tid % 3, i = bi, xi = i - c0;
       int xc[3];
       float s_ic[3], s_ci[3];
@@ -710,25 +545,14 @@ extern "C" int slam_update_launch(int device, void* stream, int B, int D, int M,
                                   const void* lm_ix, const void* do_,
                                   const void* add, const void* new_lm_cov,
                                   const void* cand, const void* a8, void* P,
-                                  void* U, void* V, void* Sigma_out,
-                                  void* mu_out, void* band_out, void* act_out,
-                                  void* scratch) {
+                                  void* U, void* V, void* mu_out, void* band_out,
+                                  void* act_out, void* scratch) {
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (B < 1 || B > 65535 || D < 9 || D != 6 + 3 * L || M < 1 || (dim != 2 && dim != 3))
+  if (B < 1 || B > 65535 || D < 9 || D != 6 + 3 * L || M < 1 || (dim != 2 && dim != 3) ||
+      !act_out)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Sigma_out) {  // the one-kernel schedule
-    update_kernel<<<B, kThreads, 0, st>>>(
-        D, M, dim, L, (const float*)Sigma, (const float*)mu, (const float*)H_sel,
-        (const float*)SinvH, (const float*)nu, (const int*)lm_ix, (const bool*)do_,
-        (const bool*)add, (const float*)new_lm_cov, (const float*)cand, (const float*)a8,
-        (float*)P, (float*)U, (float*)V, (float*)Sigma_out, (float*)mu_out,
-        (float*)band_out);
-    return (int)cudaGetLastError();
-  }
-  if (!act_out) return (int)cudaErrorInvalidValue;  // phase 1 writes Act's diagonal
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
   // the working set in shared memory, or in the caller's scratch
   // (slam_update_phase1_scratch words) where it does not fit
   const bool fits = phase1_fits(device, M, dim);
@@ -739,7 +563,7 @@ extern "C" int slam_update_launch(int device, void* stream, int B, int D, int M,
   const dim3 grid((D + kTile - 1) / kTile, B);
   auto kernel = dim == 3 ? (fits ? phase1_kernel<3, false> : phase1_kernel<3, true>)
                          : (fits ? phase1_kernel<2, false> : phase1_kernel<2, true>);
-  kernel<<<grid, kP1Threads, smem, st>>>(
+  kernel<<<grid, kP1Threads, smem, static_cast<cudaStream_t>(stream)>>>(
       D, M, L, (const float*)Sigma, (const float*)mu, (const float*)H_sel, (const float*)SinvH,
       (const float*)nu, (const int*)lm_ix, (const bool*)do_, (const bool*)add,
       (const float*)new_lm_cov, (const float*)cand, (const float*)a8, (float*)P, (float*)U,

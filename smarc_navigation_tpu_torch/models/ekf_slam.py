@@ -8,11 +8,12 @@ in the reference; see its module docstring for the mapping onto the ROS
 and shapes. The fleet replay ``run_fleet`` is a Python loop over ticks whose
 every event pass runs the data-association kernel (K1,
 ``ops.slam_da_kernels.da_lanes``) and the sequential-update kernel (K2,
-``ops.slam_kernels.sequential_update_fleet``, on its streamed schedule:
-phase 1 + the tiled downdate K12). ``step`` on CUDA state runs each of
-its passes as the same K1 + K2 on views of the one mission with a leading
-axis of 1; ``data_associate_update``'s kernel branch runs K3
-(``ops.slam_kernels.sequential_update``, on the same schedule).
+``ops.slam_kernels.sequential_update_fleet``: phase 1 + the tiled
+downdate K12). ``step`` on CUDA state runs each of its passes as the same
+K1 + K2 on views of the one mission with a leading axis of 1;
+``data_associate_update``'s kernel branch runs K3
+(``ops.slam_kernels.sequential_update``). ``_update_path`` decides which
+of these a pass or a replay takes.
 ``run_fleet_compact`` runs the same event pass on event ticks only, with
 the predicts in between composed beforehand. ``run_fleet(update_mode="marginal")`` is the reference's own
 9×9 marginal writeback on a pose-rows + band carry (``run_fleet_marginal``:
@@ -379,6 +380,38 @@ def select_updates(col_to_row, z_mask, n_active, L: int):
     return is_new, r_clip, do, can_add, slot
 
 
+# update_mode -> the path of a pass (``da_commit``, ``step``) or of a
+# replay (``run_fleet``); "auto" depends on the device
+_PASS_PATHS = {"full": "full", "kernel": "kernel", "pallas": "kernel", "marginal": "marginal"}
+_FLEET_PATHS = {"auto": "fleet", "full": "fleet", "marginal": "fleet_marginal",
+                "marginal_dense": "marginal", "kernel": "kernel", "pallas": "kernel"}
+
+
+def _update_path(update_mode: str, cuda: bool = False, solver: str = None,
+                 fleet: bool = False) -> str:
+    """Where ``update_mode`` sends a SLAM pass (host-only: ``step`` asks
+    every pass). A pass: ``"full"`` (the dense in-place update),
+    ``"kernel"`` (K3), ``"marginal"`` (the 9×9 writeback); ``"auto"`` is
+    ``"kernel"`` on CUDA state and ``"full"`` elsewhere, and ``"pallas"``
+    names ``"kernel"``. Given a ``solver`` (``step``), a kernel-mode pass on
+    CUDA state with the device solver is ``"lanes"`` (K1 + K2 at B=1). With
+    ``fleet`` (``run_fleet``): ``"fleet"`` (the K1 + K2 tick loop),
+    ``"fleet_marginal"`` (``run_fleet_marginal``), or the mode each mission
+    replays through ``run``, ``"kernel"`` or ``"marginal"``. An unknown mode
+    raises ``ValueError`` (the reference runs it as ``"full"``)."""
+    if fleet:
+        path = _FLEET_PATHS.get(update_mode)
+    elif update_mode == "auto":
+        path = "kernel" if cuda else "full"
+    else:
+        path = _PASS_PATHS.get(update_mode)
+    if path is None:
+        raise ValueError(f"unknown update_mode {update_mode!r}")
+    if path == "kernel" and cuda and solver == "device":
+        return "lanes"
+    return path
+
+
 def da_commit(
     state: SlamState,
     col_to_row: torch.Tensor,
@@ -404,12 +437,7 @@ def da_commit(
     reference's name of ``"kernel"``. An unknown mode raises (the reference
     runs it as ``"full"``)."""
     L = cfg.max_landmarks
-    if update_mode == "auto":
-        update_mode = "kernel" if state.mu.is_cuda else "full"
-    if update_mode == "pallas":
-        update_mode = "kernel"
-    if update_mode not in ("full", "kernel", "marginal"):
-        raise ValueError(f"unknown update_mode {update_mode!r}")
+    update_mode = _update_path(update_mode, state.mu.is_cuda)
     mu, Sigma = state.mu, state.Sigma
     M = z.shape[0]
     dt, dev = mu.dtype, mu.device
@@ -537,8 +565,6 @@ def step(
     the device, then K2). Everywhere else a pass is
     ``data_associate_update``: the plain DA stage, the assignment
     (``solver``) and ``da_commit`` in ``update_mode``."""
-    lanes = (state.mu.is_cuda and solver == "device"
-             and update_mode in ("auto", "kernel", "pallas"))
     with trace.span("slam.step"):
         odom = tick.channels["odom"]
         with trace.span("slam.predict"):
@@ -546,7 +572,7 @@ def step(
 
         def run_pass(st, ev, sensor):
             if bool(ev.mask.any()):
-                if lanes:
+                if _update_path(update_mode, st.mu.is_cuda, solver) == "lanes":
                     return _lanes_step_pass(st, ev.value, ev.mask, params, cfg, sensor)
                 return data_associate_update(st, ev.value, ev.mask, params, cfg,
                                              sensor, solver, update_mode)
@@ -665,8 +691,7 @@ def _lanes_associate(state_b: SlamState, z_b, mask_b, params: SlamParams,
     return c, sel
 
 
-def _lanes_update(state_b: SlamState, sel, new_cov, a8=None, band=None,
-                  streamed: bool = True):
+def _lanes_update(state_b: SlamState, sel, new_cov, a8=None, band=None):
     """The K2 half of ``da_lanes_pass`` on K1's outputs ``sel`` -> (state,
     matched, the new band or None): the slot bookkeeping, then K2."""
     H_sel, SinvH, nu_sel, cand, do, add, slot = sel
@@ -677,7 +702,7 @@ def _lanes_update(state_b: SlamState, sel, new_cov, a8=None, band=None,
     n_active = state_b.n_active + add.sum(1, dtype=torch.int32)
     upd = slam_kernels.sequential_update_fleet(
         state_b.Sigma, state_b.mu, H_sel, SinvH, nu_sel, lm_ix, do, add,
-        new_cov, cand, a8, band, streamed=streamed)
+        new_cov, cand, a8, band)
     matched = torch.where(do, slot, torch.full_like(slot, -1))
     new_state = SlamState(mu=upd[1], Sigma=upd[0], active=active,
                           n_active=n_active, mu_auv_odom=state_b.mu_auv_odom)
@@ -686,8 +711,7 @@ def _lanes_update(state_b: SlamState, sel, new_cov, a8=None, band=None,
 
 def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
                   cfg: EKFSlamConfig, sensor: SensorSpec = None,
-                  a8=None, valid=None, band=None, consts: PassConsts = None,
-                  streamed: bool = True):
+                  a8=None, valid=None, band=None, consts: PassConsts = None):
     """Fleet DA pass (MBES or FLS): DA kernel (K1) + fleet update kernel
     (K2). state_b is a batched SlamState; z_b (B, M, 3), mask_b (B, M).
     ``valid`` is accepted and ignored, as in the reference (the odometry
@@ -697,11 +721,10 @@ def da_lanes_pass(state_b: SlamState, z_b, mask_b, params: SlamParams,
     (pre-predict) covariance and both kernels apply the motion predict to
     what they read. With ``band`` (B, 24, L) given, K1 reads the landmark
     block diagonal from it and K2 returns the new band as a third element.
-    ``consts`` (``pass_consts``) is made here when not given; ``streamed``
-    is K2's schedule (``streamed=False``: the one-kernel schedule)."""
+    ``consts`` (``pass_consts``) is made here when not given."""
     sensor = MBES if sensor is None else sensor
     c, sel = _lanes_associate(state_b, z_b, mask_b, params, cfg, sensor, a8, band, consts)
-    new_state, matched, band_out = _lanes_update(state_b, sel, c.new_cov, a8, band, streamed)
+    new_state, matched, band_out = _lanes_update(state_b, sel, c.new_cov, a8, band)
     if band is not None:
         return new_state, matched, band_out
     return new_state, matched
@@ -823,7 +846,7 @@ def _loop_setup(inp: dict, names: tuple):
 
 
 def _full_tick(state: SlamState, band, odom_pose, valid, events: dict, params: SlamParams,
-               cfg: EKFSlamConfig, consts: dict, c12, streamed: bool = True):
+               cfg: EKFSlamConfig, consts: dict, c12):
     """One tick of the full-Σ fleet -> (state, band, outputs): the batched
     predict, then one ``da_lanes_pass`` (K1 + K2) per event sensor of
     ``events`` ({name: (z (B, M, 3), mask (B, M))}), the first pass carrying
@@ -832,7 +855,7 @@ def _full_tick(state: SlamState, band, odom_pose, valid, events: dict, params: S
     out = {}
     for n, (z, m) in events.items():
         st, matched, band = da_lanes_pass(st, z, m, params, cfg, _SENSORS[n], a8=a8, band=band,
-                                          consts=consts[n], streamed=streamed)
+                                          consts=consts[n])
         a8 = None
         out["matched_" + n] = matched
     out["mu"] = st.mu[:, 0:6]
@@ -844,9 +867,9 @@ def _tick_events(inp: dict, names: tuple, t: int) -> dict:
     return {n: (inp["z_" + n][t], inp["m_" + n][t]) for n in names}
 
 
-def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple, streamed: bool = True):
+def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple):
     """``run_fleet``'s tick loop on ``_loop_inputs`` -> (final state,
-    outputs stacked (T, B, ...)), K2 on the given schedule. Capture-safe:
+    outputs stacked (T, B, ...)). Capture-safe:
     nothing in it syncs with the host or builds a tensor from host data."""
     params, s0, consts, c12 = _loop_setup(inp, names)
     T, B = inp["valid"].shape
@@ -856,8 +879,7 @@ def _full_loop(inp: dict, cfg: EKFSlamConfig, names: tuple, streamed: bool = Tru
     outs = []
     for t in range(T):
         state, band, out = _full_tick(state, band, inp["odom_pose"][t], inp["valid"][t],
-                                      _tick_events(inp, names, t), params, cfg, consts, c12,
-                                      streamed)
+                                      _tick_events(inp, names, t), params, cfg, consts, c12)
         outs.append(out)
     return state, _stack_outputs(outs)
 
@@ -869,7 +891,6 @@ def run_fleet(
     update_mode: str = "auto",
     device_mesh=None,
     graph: bool = True,
-    streamed: bool = True,
 ):
     """Fleet replay of B missions (tensor-leaved batched Timeline, leaves
     (B, T, ...)) -> (final batched SlamState, outputs stacked (T, B, ...)).
@@ -880,12 +901,10 @@ def run_fleet(
     ``run`` with full updates). No host sync inside the tick loop.
 
     On CUDA tensors the tick loop runs as a CUDA graph cached per shape,
-    configuration, sensor set and K2 schedule (``utils.graphs``; the
-    reference runs it as one jitted ``lax.scan``); ``graph=False`` runs it
-    eagerly, launch by launch, for comparisons. CPU tensors always take the
-    eager loop on the kernels' plain versions. ``streamed=False`` runs K2's
-    one-kernel schedule instead of phase 1 + K12 (the same bits on the
-    card; kept for comparisons).
+    configuration and sensor set (``utils.graphs``; the reference runs it
+    as one jitted ``lax.scan``); ``graph=False`` runs it eagerly, launch by
+    launch, for comparisons. CPU tensors always take the eager loop on the
+    kernels' plain versions.
 
     ``update_mode="marginal"`` is ``run_fleet_marginal`` (K1 + K4 on the
     pose-rows + band carry); ``"marginal_dense"`` and ``"kernel"`` (or its
@@ -893,29 +912,23 @@ def run_fleet(
     that covariance writeback, as the reference does for its non-default
     modes."""
     if device_mesh is not None:
-        return _run_fleet_sharded(batched_timeline, params, cfg, update_mode, device_mesh,
-                                  graph, streamed)
-    if update_mode == "marginal":
+        return _run_fleet_sharded(batched_timeline, params, cfg, update_mode, device_mesh, graph)
+    path = _update_path(update_mode, fleet=True)
+    if path == "fleet_marginal":
         return run_fleet_marginal(batched_timeline, params, cfg, graph=graph)
-    if update_mode == "marginal_dense":
-        update_mode = "marginal"
-    if update_mode == "pallas":
-        update_mode = "kernel"
-    if update_mode in ("marginal", "kernel"):
-        return _run_per_mission(batched_timeline, params, cfg, update_mode)
-    if update_mode not in ("auto", "full"):
-        raise ValueError(f"unknown update_mode {update_mode!r}")
+    if path != "fleet":
+        return _run_per_mission(batched_timeline, params, cfg, path)
 
     with trace.span("slam.fleet.stage"):
         inp, names = _loop_inputs(batched_timeline, params, cfg)
     if graph and inp["valid"].device.type == "cuda":
-        key = ("ekf_slam.run_fleet", cfg, names, streamed)
-        return graphs.run(key, lambda x: _full_loop(x, cfg, names, streamed), inp)
-    return _full_loop(inp, cfg, names, streamed)
+        key = ("ekf_slam.run_fleet", cfg, names)
+        return graphs.run(key, lambda x: _full_loop(x, cfg, names), inp)
+    return _full_loop(inp, cfg, names)
 
 
 def _run_fleet_sharded(tl, params: SlamParams, cfg: EKFSlamConfig, update_mode: str,
-                       device_mesh, graph: bool, streamed: bool):
+                       device_mesh, graph: bool):
     """``run_fleet`` with the missions split over ``device_mesh``'s mission
     axis: each mission shard's replay (any update mode) on the first device
     of its mesh row, the final states and the (T, B, ...) outputs joined on
@@ -925,7 +938,7 @@ def _run_fleet_sharded(tl, params: SlamParams, cfg: EKFSlamConfig, update_mode: 
     if B % M:
         raise ValueError(f"fleet size {B} not divisible by mission axis {M}")
     res = [run_fleet(t, mesh_lib.tree_map(lambda x, d=row[0]: x.to(d), params), cfg,
-                     update_mode, graph=graph, streamed=streamed)
+                     update_mode, graph=graph)
            for t, row in zip(mesh_lib.shard_missions(tl, device_mesh), device_mesh.devices)]
     dev = tl.ticks.device
     return (mesh_lib.join_missions([r[0] for r in res], dev, 0),

@@ -5,15 +5,13 @@ marginal-writeback counterpart.
 CUDA kernels of ``csrc/slam_update.cu`` for CUDA tensors and take their
 plain PyTorch versions for CPU tensors. They replace the TPU kernels of
 ``smarc_navigation_tpu/ops/slam_kernels.py`` of the same names and keep
-their signatures; K2 drops the TPU-only options ``tiled_ep`` (a VMEM layout
-of the same kernel) and ``mb`` (the VMEM mission block). K3 is K2 at B=1
-with no predict, no landmark-position init and no band. Both take the
-streamed schedule by default, at every state size: phase 1 (factors, μ,
-band, over a grid of column tiles) and then ``symmetric_downdate`` (K12,
-``csrc/slam_downdate.cu``: the downdate over tiles), which replaces the TPU
-kernel's phase 2. ``streamed=False`` runs the one-kernel schedule (one block
-per mission does the downdate too), kept as the yardstick: the two give the
-same bits on the card.
+their signatures; K2 drops the TPU schedule options ``tiled_ep`` (a VMEM
+layout of the same kernel), ``mb`` (the VMEM mission block) and ``streamed``.
+K3 is K2 at B=1 with no predict, no landmark-position init and no band.
+Both run one schedule at every state size: ``phase1`` (factors, μ, band,
+over a grid of column tiles) and then ``symmetric_downdate`` (K12,
+``csrc/slam_downdate.cu``: the downdate over tiles), the TPU kernel's
+streamed schedule.
 
 ``sequential_update_marginal_fleet`` (K4, ``csrc/slam_marginal.cu``) is the
 reference's own 9×9 marginal writeback on pose rows + band.
@@ -37,7 +35,7 @@ from .. import _build, _tensors
 from ..utils.geometry import wrap_angle
 
 _ARGTYPES = {
-    "slam_update": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 19,
+    "slam_update": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 18,
     "slam_downdate": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6,
     "slam_marginal": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 15,
 }
@@ -100,53 +98,42 @@ def _check(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
 
 
 def _launch(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
-            cand, a8, band, what, streamed):
+            cand, a8, band, what):
     """Launch the update kernels on checked (B, ...) CUDA tensors ->
-    (Sigma, mu, band). The streamed schedule runs ``phase1`` and then K12,
-    the one-kernel schedule one kernel."""
-    if streamed:
-        mu_out, band_out, P_rows, U, V, act = phase1(
-            Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand, a8,
-            band, what)
-        return symmetric_downdate(Sigma, U, V, P_rows, act), mu_out, band_out
-    return _kernel(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
-                   cand, a8, band, what, True)[:3]
+    (Sigma, mu, band): ``phase1``, then K12."""
+    mu_out, band_out, P_rows, U, V, act = phase1(
+        Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand, a8,
+        band, what)
+    return symmetric_downdate(Sigma, U, V, P_rows, act), mu_out, band_out
 
 
 def phase1(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand,
            a8, band, what="sequential_update_fleet"):
-    """Phase 1 of the streamed schedule on checked CUDA tensors -> (mu,
-    band, P, U, V, act): a grid of (column tile, mission) blocks writes what
-    ``symmetric_downdate`` needs besides Σ — the factors U, V (B, M·dim, D),
-    the predicted pose rows P (B, 6, D; None without a8) and the activation
-    diagonal act (B, D)."""
-    return _kernel(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
-                   cand, a8, band, what, False)[1:]
-
-
-def _kernel(Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
-            cand, a8, band, what, write_sigma):
+    """K2's phase 1 on checked CUDA tensors -> (mu, band, P, U, V, act): a
+    grid of (column tile, mission) blocks writes what ``symmetric_downdate``
+    needs besides Σ — the factors U, V (B, M·dim, D), the predicted pose
+    rows P (B, 6, D; None without a8) and the activation diagonal act
+    (B, D)."""
     dev = Sigma.device
     B, D = Sigma.shape[0], Sigma.shape[1]
     M, dim = nu_sel.shape[1], nu_sel.shape[2]
     L = (D - 6) // 3
     f32 = torch.float32
-    Sigma_out = torch.empty_like(Sigma) if write_sigma else None
-    act = None if write_sigma else torch.empty_like(mu)
+    act = torch.empty_like(mu)
     mu_out = torch.empty_like(mu)
     band_out = torch.empty((B, 24, L), dtype=f32, device=dev) if band is not None else None
     P_rows = torch.empty((B, 6, D), dtype=f32, device=dev) if a8 is not None else None
     U = torch.empty((B, M * dim, D), dtype=f32, device=dev)
     V = torch.empty((B, M * dim, D), dtype=f32, device=dev)
-    scratch = None if write_sigma else _phase1_scratch(dev, B, D, M, dim)
+    scratch = _phase1_scratch(dev, B, D, M, dim)
     P = _tensors.ptr
     rc = _lib()(
         _tensors.device_index(dev), _tensors.stream(dev), B, D, M, dim, L,
         P(Sigma), P(mu), P(H_sel), P(SinvH), P(nu_sel), P(lm_ix), P(do),
         P(add), P(new_lm_cov), P(cand), P(a8), P(P_rows), P(U), P(V),
-        P(Sigma_out), P(mu_out), P(band_out), P(act), P(scratch))
+        P(mu_out), P(band_out), P(act), P(scratch))
     _build.check(rc, what)
-    return Sigma_out, mu_out, band_out, P_rows, U, V, act
+    return mu_out, band_out, P_rows, U, V, act
 
 
 def sequential_update_fleet(
@@ -164,24 +151,19 @@ def sequential_update_fleet(
                                 #   rows 0:6 × cols 8:14 = R̃ (validity-gated)
     band: torch.Tensor = None,  # (B, 24, L) landmark block-diag band; when
                                 #   given, the new band is a third output
-    streamed: bool = True,      # two-phase schedule: phase 1 writes the
-                                #   U/V factors, μ and the band, then K12
-                                #   (``symmetric_downdate``) writes Σ;
-                                #   False: the one-kernel schedule
 ) -> tuple:
     """Fleet sequential update -> ``(Sigma, mu)``, or ``(Sigma, mu, band)``
     when ``band`` is given. With ``a8``, Σ is the raw covariance and the
     motion predict Σ' = Ã Σ Ãᵀ + R̃ is applied first; with ``cand``, added
-    landmarks' μ rows are initialised to their candidates. On the card the
-    two schedules give the same Σ, μ and band bit for bit (the same fmaf
-    sequence per entry); both Σ are exactly symmetric."""
+    landmarks' μ rows are initialised to their candidates. Phase 1 writes
+    the U/V factors, μ and the band, then K12 (``symmetric_downdate``)
+    writes Σ, exactly symmetric; the band holds Σ's own entries. On the CPU:
+    the plain version's factor form."""
     args = (Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand, a8, band)
     _check(*args, "sequential_update_fleet")
     if Sigma.device.type == "cpu":
-        return sequential_update_fleet_reference(*args, streamed=streamed)
-    Sigma_out, mu_out, band_out = _launch(
-        Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, cand, a8,
-        band, "sequential_update_fleet", streamed)
+        return sequential_update_fleet_reference(*args, streamed=True)
+    Sigma_out, mu_out, band_out = _launch(*args, "sequential_update_fleet")
     sequential_update_fleet.launches += 1
     if band is not None:
         return Sigma_out, mu_out, band_out
@@ -202,15 +184,15 @@ def sequential_update(
     add: torch.Tensor,      # (M,) bool (implies do)
     new_lm_cov: torch.Tensor,  # (3,)
 ) -> tuple:
-    """All M sequential updates of one mission -> (Sigma, mu), on K2's
-    streamed schedule: phase 1 + K12."""
+    """All M sequential updates of one mission -> (Sigma, mu), as K2 runs
+    them: phase 1 + K12."""
     batched = (Sigma[None], mu[None], H_sel[None], SinvH[None], nu_sel[None],
                lm_ix[None], do[None], add[None], new_lm_cov, None, None, None)
     _check(*batched, "sequential_update")
     if Sigma.device.type == "cpu":
         return sequential_update_reference(
             Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov, streamed=True)
-    Sigma_out, mu_out, _ = _launch(*batched, "sequential_update", True)
+    Sigma_out, mu_out, _ = _launch(*batched, "sequential_update")
     sequential_update.launches += 1
     return Sigma_out[0], mu_out[0]
 
@@ -222,8 +204,10 @@ def sequential_update_fleet_reference(
     Sigma, mu, H_sel, SinvH, nu_sel, lm_ix, do, add, new_lm_cov,
     cand=None, a8=None, band=None, streamed=False,
 ):
-    """Plain PyTorch version of ``sequential_update_fleet``. With
-    ``streamed`` the same sequence gives μ and the factors U_j = K_jᵀ,
+    """Plain PyTorch version of ``sequential_update_fleet``: by default the
+    dense form (the reference's ``upd_dense``, Σ downdated in place after
+    each update). With ``streamed`` (the factor form, which the kernels
+    mirror) the same sequence gives μ and the factors U_j = K_jᵀ,
     V_j = H_j rows_j, and Σ comes from ``symmetric_downdate_reference`` of
     the raw Σ, the predicted pose rows and the activation diagonal."""
     B, D = Sigma.shape[0], Sigma.shape[1]

@@ -214,6 +214,40 @@ def test_unported_modes_raise():
         S.run_fleet(tl.to("cpu"), _port_params(), CFG, update_mode="lowrank")
 
 
+# ``_update_path``'s whole table: the path of each update_mode by caller,
+# device and solver; None: the mode raises ValueError
+PATH_COLUMNS = [                                          # (cuda, solver, fleet)
+    (False, None, False), (True, None, False),            # da_commit
+    (False, "device", False), (False, "host", False),     # step on CPU state
+    (True, "device", False), (True, "host", False),       # step on CUDA state
+    (False, None, True), (True, None, True),              # run_fleet
+]
+PATH_TABLE = {
+    "auto": ["full", "kernel", "full", "full", "lanes", "kernel", "fleet", "fleet"],
+    "full": ["full"] * 6 + ["fleet"] * 2,
+    "kernel": ["kernel"] * 4 + ["lanes", "kernel"] + ["kernel"] * 2,
+    "pallas": ["kernel"] * 4 + ["lanes", "kernel"] + ["kernel"] * 2,
+    "marginal": ["marginal"] * 6 + ["fleet_marginal"] * 2,
+    "marginal_dense": [None] * 6 + ["marginal"] * 2,
+    "lowrank": [None] * 8,
+}
+
+
+@pytest.mark.parametrize("mode", sorted(PATH_TABLE))
+def test_update_path_maps_every_mode_in_one_place(mode):
+    """``_update_path``, the one function that maps ``update_mode`` for
+    ``da_commit``, ``step`` and ``run_fleet``: its path for every caller,
+    device and solver, and ``ValueError`` where the caller has no such
+    mode."""
+    for (cuda, solver, on_fleet), want in zip(PATH_COLUMNS, PATH_TABLE[mode]):
+        where = (cuda, solver, on_fleet)
+        if want is None:
+            with pytest.raises(ValueError, match="update_mode"):
+                S._update_path(mode, cuda, solver, on_fleet)
+        else:
+            assert S._update_path(mode, cuda, solver, on_fleet) == want, where
+
+
 # ---------------------------------------------------------------------------
 # the online step's pass on CUDA state: K1 + K2 on B=1 views
 # ---------------------------------------------------------------------------

@@ -160,15 +160,15 @@ def test_hungarian_host_leaves_columns_past_the_rows_unassigned():
 
 # deliberate differences, by function: the parameters the port adds (a
 # device for the entry points that make tensors, and the trailing
-# graph=/streamed= of the fleet replays and the fleet pass's hoisted
+# graph= of the fleet replays and the fleet pass's hoisted
 # constants). The reference's TPU layout options and JAX keys are in
 # functions the port does not share by name.
 ADDED = {
     ("models/ekf_slam.py", "make_params"): ["device"],
     ("models/ekf_slam.py", "init_state"): ["device"],
-    ("models/ekf_slam.py", "run_fleet"): ["graph", "streamed"],
+    ("models/ekf_slam.py", "run_fleet"): ["graph"],
     ("models/ekf_slam.py", "run_fleet_marginal"): ["graph"],
-    ("models/ekf_slam.py", "da_lanes_pass"): ["consts", "streamed"],
+    ("models/ekf_slam.py", "da_lanes_pass"): ["consts"],
     ("models/ekf_slam.py", "da_lanes_pass_marginal"): ["consts"],
 }
 

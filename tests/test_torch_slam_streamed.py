@@ -1,17 +1,17 @@
-"""K2's streamed schedule and K12 (``symmetric_downdate``) against the JAX
+"""K2 (phase 1 + K12) and K12 (``symmetric_downdate``) against the JAX
 package's ``sequential_update_fleet(streamed=True)`` and against numpy.
 
 The shape is the JAX package's own streamed test
 (``tests/test_slam_kernels.py``: B=2, L=170, M=4, D=516). On the CPU the
-port's wrappers take their plain versions; the JAX side runs its Pallas
-kernels in TPU-interpret mode. The ``cuda`` tests hold K12 and the streamed
-K2 against their plain versions, and the streamed schedule against the
-one-kernel schedule, on the card.
+port's wrappers take their plain versions (K2's: the factor form); the JAX
+side runs its Pallas kernels in TPU-interpret mode. The ``cuda`` tests hold
+K12 and K2 against their plain versions on the card.
 
-Tolerances: μ of the streamed schedule is bitwise the one-kernel schedule's
+Tolerances: μ of the plain factor form is bitwise the plain dense form's
 (the same update sequence produces both). Σ agrees with JAX's to 1e-5 of its
 scale: the factors are the same algebra, summed in another order (observed
-~1e-7 relative). Every Σ is exactly symmetric.
+~1e-7 relative). Every Σ is exactly symmetric, and on the card K2's band
+holds its Σ's own entries.
 """
 
 from types import SimpleNamespace
@@ -62,23 +62,24 @@ def _inputs(seed):
 def test_streamed_plain_matches_jax(jx):
     args = _inputs(29)
     targs = [_to_torch(a) for a in args]
-    S_s, mu_s = tsk.sequential_update_fleet(*targs, streamed=True)
-    S_d, mu_d = tsk.sequential_update_fleet(*targs, streamed=False)
+    S_s, mu_s = tsk.sequential_update_fleet(*targs)
+    S_d, mu_d = tsk.sequential_update_fleet_reference(*targs)          # the dense form
     with jx.pltpu.force_tpu_interpret_mode():
         JS_s, _ = jx.sk.sequential_update_fleet(*[jx.jnp.asarray(a) for a in args],
                                                 streamed=True)
     assert torch.equal(mu_s, mu_d)
     _close(S_s.numpy(), np.asarray(JS_s), rtol=0, atol_scale=1e-5, what="Sigma vs JAX")
-    _close(S_s.numpy(), S_d.numpy(), rtol=0, atol_scale=1e-5, what="Sigma vs one-kernel")
+    _close(S_s.numpy(), S_d.numpy(), rtol=0, atol_scale=1e-5, what="Sigma vs dense form")
     assert torch.equal(S_s, S_s.transpose(1, 2))
 
 
 def test_streamed_is_the_default_at_large_state():
-    """The default schedule is the streamed one (its plain version, on the
-    CPU), here at D >= 512 as at every state size."""
+    """On the CPU, ``sequential_update_fleet`` is its plain version's factor
+    form (``streamed=True``, the form the kernels mirror) bit for bit, here
+    at D >= 512 as at every state size."""
     targs = [_to_torch(a) for a in _inputs(3)]
     S_n, mu_n = tsk.sequential_update_fleet(*targs)
-    S_s, mu_s = tsk.sequential_update_fleet(*targs, streamed=True)
+    S_s, mu_s = tsk.sequential_update_fleet_reference(*targs, streamed=True)
     assert torch.equal(S_n, S_s) and torch.equal(mu_n, mu_s)
 
 
@@ -140,10 +141,10 @@ def test_symmetric_downdate_kernel_matches_plain(cuda, with_p):
 
 
 @pytest.mark.cuda
-def test_streamed_kernel_matches_one_kernel_schedule(cuda):
-    """On the card the two schedules give the same μ and band bit for bit,
-    Σ exactly symmetric and equal to tolerance; both match the plain
-    streamed version."""
+def test_k2_kernel_matches_its_plain_twin(cuda):
+    """On the card K2 (one phase 1 and one K12 launch) gives an exactly
+    symmetric Σ whose entries its band holds, Σ and μ within the plain
+    factor form's tolerances."""
     from test_torch_slam_kernels import _update_inputs
 
     x = _update_inputs(41, 3, 3)
@@ -151,21 +152,19 @@ def test_streamed_kernel_matches_one_kernel_schedule(cuda):
             ("Sigma", "mu", "H", "SinvH", "nu", "lm_ix", "do", "add", "new_cov",
              "cand", "a8", "band")]
     n0 = (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches)
-    S_s, mu_s, band_s = tsk.sequential_update_fleet(*args, streamed=True)
-    S_d, mu_d, band_d = tsk.sequential_update_fleet(*args, streamed=False)
+    S_s, mu_s, band_s = tsk.sequential_update_fleet(*args)
     torch.cuda.synchronize()
     assert (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches) == (
-        n0[0] + 2, n0[1] + 1)
-    assert torch.equal(mu_s, mu_d) and torch.equal(band_s, band_d)
+        n0[0] + 1, n0[1] + 1)
     assert torch.equal(S_s, S_s.transpose(1, 2))
-    _close(S_s.cpu().numpy(), S_d.cpu().numpy(), rtol=0, atol_scale=1e-5)
+    assert torch.equal(band_s, S.initial_band(S_s, band_s.shape[-1]))
     want = tsk.sequential_update_fleet_reference(*args, streamed=True)
     _close(S_s.cpu().numpy(), want[0].cpu().numpy(), rtol=0, atol_scale=1e-4)
     _close(mu_s.cpu().numpy(), want[1].cpu().numpy(), rtol=0, atol_scale=1e-5)
 
 
 # ---------------------------------------------------------------------------
-# the streamed schedule at every state size
+# K2's one schedule at every state size
 # ---------------------------------------------------------------------------
 
 def _update_args(x, b=None):
@@ -179,10 +178,9 @@ def _update_args(x, b=None):
 
 
 def test_k3_and_b1_fleet_take_the_streamed_schedule(jx):
-    """The default schedule is the streamed one at every D, for K3 and for
-    K2 at B=1: on the CPU each wrapper gives its plain streamed version bit
-    for bit, and that agrees with the JAX kernels as the large-state test
-    above does."""
+    """K3 and K2 at B=1 take the factor form at every D: on the CPU each
+    wrapper gives its plain factor form bit for bit, and that agrees with
+    the JAX kernels as the large-state test above does."""
     from test_torch_slam_kernels import _update_inputs
 
     x = _update_inputs(17, 2, 3)
@@ -209,8 +207,7 @@ def _bits(t):
 
 
 def _card_case(case):
-    """K2's arguments at one shape the card tests hold the streamed
-    schedule to."""
+    """K2's arguments at one shape the card tests hold it to."""
     from test_torch_slam_kernels import _update_inputs
 
     if case == "headline":        # D=198, B=128
@@ -259,23 +256,20 @@ CASES = ["headline", "L256", "B1", "odd", "small", "all_off", "add_last", "defau
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", CASES)
-def test_streamed_is_the_one_kernel_schedule_bit_for_bit(cuda, case):
-    """Phase 1 + K12 give the one-kernel schedule's Σ, μ and band bit for
-    bit, Σ exactly symmetric; one K2 launch per call and one K12 launch per
-    streamed call; both within the plain version's tolerances."""
+def test_k2_matches_its_plain_twin(cuda, case):
+    """Phase 1 + K12 (one K2 and one K12 launch per call): Σ exactly
+    symmetric, the band Σ's own entries, Σ and μ within the plain factor
+    form's tolerances."""
     args = _card_case(case)
     t = [_to_torch(a, cuda) for a in args]
     n0 = (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches)
     strm = tsk.sequential_update_fleet(*t)
     torch.cuda.synchronize()
     n1 = (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches)
-    one = tsk.sequential_update_fleet(*t, streamed=False)
-    torch.cuda.synchronize()
-    n2 = (tsk.sequential_update_fleet.launches, tsk.symmetric_downdate.launches)
-    assert n1 == (n0[0] + 1, n0[1] + 1) and n2 == (n1[0] + 1, n1[1])
-    for g, w, what in zip(strm, one, ("Sigma", "mu", "band")):
-        assert torch.equal(_bits(g), _bits(w)), f"{case}: {what} differs between the schedules"
+    assert n1 == (n0[0] + 1, n0[1] + 1)
     assert torch.equal(_bits(strm[0]), _bits(strm[0].transpose(1, 2)))
+    assert torch.equal(strm[2], S.initial_band(strm[0], strm[2].shape[-1])), (
+        f"{case}: the band is not Sigma's entries")
     want = tsk.sequential_update_fleet_reference(*t, streamed=True)
     _close(strm[0].cpu().numpy(), want[0].cpu().numpy(), rtol=0, atol_scale=1e-4)
     _close(strm[1].cpu().numpy(), want[1].cpu().numpy(), rtol=0, atol_scale=1e-5)
@@ -301,10 +295,10 @@ def test_symmetric_downdate_kernel_on_phase1_factors(cuda, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["headline", "odd", "small", "all_off", "add_last",
                                   "defaults_mbes_L64", "spill"])
-def test_k3_is_the_one_kernel_schedule_bit_for_bit(cuda, case):
-    """K3 (B=1, no predict) through phase 1 + K12: the one-kernel schedule's
-    bits, one K3 and one K12 launch per call, and its plain version's
-    tolerances."""
+def test_k3_matches_its_plain_twin(cuda, case):
+    """K3 (B=1, no predict) through phase 1 + K12: K2's bits at B=1, one K3
+    and one K12 launch per call, Σ exactly symmetric, and its plain factor
+    form's tolerances."""
     args = _card_case(case)
     k3 = [a[0] if i < 8 else a for i, a in enumerate(args[:9])]
     t = [_to_torch(a, cuda) for a in k3]
@@ -313,8 +307,7 @@ def test_k3_is_the_one_kernel_schedule_bit_for_bit(cuda, case):
     torch.cuda.synchronize()
     assert (tsk.sequential_update.launches, tsk.symmetric_downdate.launches) == (
         n0[0] + 1, n0[1] + 1)
-    S1, mu1 = tsk.sequential_update_fleet(*[a[None] if i < 8 else a for i, a in enumerate(t)],
-                                          streamed=False)
+    S1, mu1 = tsk.sequential_update_fleet(*[a[None] if i < 8 else a for i, a in enumerate(t)])
     assert torch.equal(_bits(S3), _bits(S1[0])) and torch.equal(_bits(mu3), _bits(mu1[0]))
     assert torch.equal(_bits(S3), _bits(S3.T))
     want = tsk.sequential_update_reference(*t, streamed=True)
