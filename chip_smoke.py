@@ -49,7 +49,18 @@ Phases (any failure exits nonzero; nothing is caught):
   5. the headline replay (``slam_fleet_timelines(combined_slam_cfg(), 60, 128)``
      through ``run_fleet``), timed with CUDA events; K1, K2 (phase 1) and
      K12 must each have launched once per tick;
-  6. one single-mission ``step`` on the card: K1 + K2 (phase 1 + K12) at B=1;
+  6. one single-mission ``step`` on the card: K15, then K1 + K2 (phase 1 +
+     K12) at B=1, each once, against the same step with K15's plain twin
+     and the dense update;
+ 6b. K15 ``online_predict`` (the online step's motion predict) at B=1,
+     L=64 and L=256, against its plain twin ``predict(state, odom_pose(v),
+     params)`` on the card, with 13-wide odometry, odometry steps of a few
+     cm to m, and attitudes at ±π and pitch π/2: μ's position,
+     ``mu_auv_odom``, Σ past the pose rows and columns and Σ's attitude
+     rows and columns (R's and zeros) bitwise, the attitude within 2 ulp,
+     Σ's position rows within 1e-6 of each block's largest entry; its
+     device time, the host's time per call back to back beside the twin's,
+     one launch a call;
  5b. the L=256 full replay (``slam_fleet_timelines(cfg256, 60, 32)``, T=601):
      K1, K2 (phase 1) and K12 once per tick;
  5c. the L=256 marginal replay on the same timeline: K1 and K4 once per tick;
@@ -142,7 +153,7 @@ Phases (any failure exits nonzero; nothing is caught):
      sample log's MBES stream; (b) ``run.main(["replay", "--log",
      "data/sample_mission.npz"])`` (T=901, L=64, M=8): K1 and K2 (phase 1
      + K12) once per tick with an MBES burst, counted from the log's
-     timeline, K3 never;
+     timeline, K3 never, K15 once per tick;
      ``ekf_slam.run`` of the log on the card against the CPU over its
      first 30 s (matched_mbes exact, poses within POSE_TOL), and the same
      command with ``--device cpu`` on the log's first 30 s against the
@@ -1158,13 +1169,14 @@ def slam256_kernels_phase(dev, cfg, params, tl):
     from smarc_navigation_tpu_torch.models import ekf_slam as S
     from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
     from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+    from smarc_navigation_tpu_torch.utils.geometry import odom_pose
 
     t0 = time.perf_counter()
     B, L, M = tl.ticks.shape[0], cfg.max_landmarks, cfg.max_obs
     D = 6 + 3 * L
     warm = tl.map(lambda x: x[:, :T_WARM])
     odom = tl.channels["odom"]
-    pose_t = S._odom_pose(odom.value[:, T_WARM]).contiguous()
+    pose_t = odom_pose(odom.value[:, T_WARM]).contiguous()
     valid_t = odom.valid[:, T_WARM].contiguous()
     ev = tl.events["mbes"]
     z = ev.value[:, T_WARM].contiguous()
@@ -1227,7 +1239,7 @@ def slam256_kernels_phase(dev, cfg, params, tl):
         warnings.simplefilter("ignore")
         tl16 = slam_fleet_timelines(cfg16, 6.0, B).to(dev)
     odom16 = tl16.channels["odom"]
-    pose16 = S._odom_pose(odom16.value[:, T_WARM]).contiguous()
+    pose16 = odom_pose(odom16.value[:, T_WARM]).contiguous()
     valid16 = odom16.valid[:, T_WARM].contiguous()
     ev16 = tl16.events["mbes"]
     z16 = ev16.value[:, T_WARM].contiguous()
@@ -1366,6 +1378,7 @@ def big_jv_phase(dev, cfg, params, tl):
 
     from smarc_navigation_tpu_torch.models import ekf_slam as S
     from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
+    from smarc_navigation_tpu_torch.utils.geometry import odom_pose
 
     t0 = time.perf_counter()
     B, L, M = 4, cfg.max_landmarks, cfg.max_obs
@@ -1374,7 +1387,7 @@ def big_jv_phase(dev, cfg, params, tl):
     fm, _ = S.run_fleet(sub.map(lambda x: x[:, :T_WARM]), params, cfg, update_mode="marginal",
                         graph=False)
     odom = sub.channels["odom"]
-    pose_t = S._odom_pose(odom.value[:, T_WARM]).contiguous()
+    pose_t = odom_pose(odom.value[:, T_WARM]).contiguous()
     valid_t = odom.valid[:, T_WARM].contiguous()
     rows = torch.zeros(B, 8, D, device=dev)
     rows[:, 0:6] = fm.Sigma[:, 0:6]
@@ -2077,7 +2090,7 @@ def close_reports(card, cpu, keys, what):
 
 def cli_phase(dev):
     """Phase 20: the mission CLI on the card (see the module docstring).
-    Returns {path: launches} of K1, K2, K3, K12, K5 and K7."""
+    Returns {path: launches} of K1, K2, K3, K12, K5, K7, K13, K14 and K15."""
     import os
     import shutil
     import tempfile
@@ -2099,7 +2112,7 @@ def cli_phase(dev):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     counters = [K1.da_lanes, K2.sequential_update_fleet, K2.sequential_update,
                 K2.symmetric_downdate, PK.predict_call_multi, PK.expand_gather_call,
-                PK.gps_weights_call, RS.systematic_counts]
+                PK.gps_weights_call, RS.systematic_counts, K2.online_predict]
 
     def reset():
         for f in counters:
@@ -2163,10 +2176,12 @@ def cli_phase(dev):
     rep = quiet(run.main, ["replay", "--log", SAMPLE_LOG, "--out", os.path.join(tmp, "replay")])
     launches["cli-replay"] = counts()
     if ([launches["cli-replay"][k] for k in ("da_lanes", "sequential_update_fleet",
-                                             "symmetric_downdate", "sequential_update")]
-            != [n_burst, n_burst, n_burst, 0]):
+                                             "symmetric_downdate", "sequential_update",
+                                             "online_predict")]
+            != [n_burst, n_burst, n_burst, 0, T]):
         raise AssertionError(f"cli replay: launches {launches['cli-replay']}, expected K1, K2 "
-                             f"and K12 {n_burst} (the log's ticks with an MBES burst), K3 none")
+                             f"and K12 {n_burst} (the log's ticks with an MBES burst), K3 none, "
+                             f"K15 {T} (every tick)")
     if rep["ticks"] != T or not np.isfinite(rep["rmse_pos"]):
         raise AssertionError(f"cli replay: report {rep}")
     # card against CPU: the card's ekf_slam.run over the whole log (also
@@ -2583,6 +2598,121 @@ def mesh_phase(dev, cfg, params, tl, counters):
     return dict(window=win, k8_shard=k8s, pf=pf, fleets=fleets)
 
 
+K15_SEEDS = 3        # phase 6b: states per shape
+K15_ATTITUDES = ((0.3, -0.2, 2.9), (3.14159265, 0.1, -3.14159265), (-0.4, 1.5707963, 1.0))
+K15_RTOL = 1e-6      # phase 6b: Σ's position rows, of each block's largest entry
+
+
+def k15_sigma_check(got, want):
+    """K15's Σ' against the twin's -> (the largest error of the position
+    rows as a share of their block's largest entry, the largest absolute
+    error anywhere). The attitude rows and
+    columns are R's columns and zeros in both (A's attitude rows are zero),
+    so they and Σ past the pose rows and columns must be bitwise; the
+    position rows Σ'[0:3, 0:3] and Σ'[0:3, 6:] (and their mirror) are
+    within K15_RTOL of their own block's largest entry."""
+    import torch
+
+    bitwise = (("attitude rows", got[3:6], want[3:6]),
+               ("attitude columns", got[:, 3:6], want[:, 3:6]),
+               ("landmark block", got[6:, 6:], want[6:, 6:]),
+               ("mirror", got[6:, 0:6], got[0:6, 6:].T))
+    for name, a, b in bitwise:
+        if not torch.equal(a, b):
+            raise AssertionError(f"K15: Sigma {name} not bitwise the twin")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("K15: non-finite Sigma")
+    rel = 0.0
+    for a, b in ((got[0:3, 0:3], want[0:3, 0:3]), (got[0:3, 6:], want[0:3, 6:])):
+        a, b = a.double(), b.double()
+        rel = max(rel, float((a - b).abs().max()) / float(b.abs().max()))
+    if rel > K15_RTOL:
+        raise AssertionError(f"K15: Sigma position rows {rel:.3e} of their block > {K15_RTOL}")
+    return rel, float((got.double() - want.double()).abs().max())
+
+
+def k15_phase(dev):
+    """Phase 6b: K15 ``online_predict`` at B=1, L=64 and L=256, against its
+    plain twin ``predict(state, odom_pose(v), params)`` on the card, on
+    random symmetric positive definite Σ and 13-wide odometry (an attitude
+    at ±π and one at pitch π/2 among them) a step of a few cm to m from
+    ``mu_auv_odom``, as a log's ticks are: μ's position, ``mu_auv_odom`` and
+    μ past the pose bitwise, the attitude within 2 ulp, Σ by
+    ``k15_sigma_check``; its device time, the host's time per call beside
+    the twin's (back to back), one launch a call. Returns {L: result}."""
+    import torch
+
+    from smarc_navigation_tpu_torch.configs import EKFSlamConfig
+    from smarc_navigation_tpu_torch.models import ekf_slam as S
+    from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+    from smarc_navigation_tpu_torch.utils.geometry import odom_pose, quat_from_rpy_np
+
+    res = {}
+    for L in (64, 256):
+        D = 6 + 3 * L
+        cfg = dataclasses.replace(EKFSlamConfig(), max_landmarks=L)
+        att_ulp = sigma_rel = sigma_err = 0.0
+        for seed in range(K15_SEEDS):
+            rng = np.random.default_rng(seed)
+            X = rng.normal(0.0, 1.0, (D, D)) / np.sqrt(D)
+            f32 = dict(dtype=torch.float32, device=dev)
+            st0 = S.init_state(cfg, device=dev)._replace(
+                mu=torch.tensor(rng.normal(0.0, 20.0, D), **f32),
+                Sigma=torch.tensor(X @ X.T + 1e-3 * np.eye(D), **f32))
+            params = S.make_params(cfg, device=dev)
+            for rpy in K15_ATTITUDES:
+                pos = rng.normal(0.0, 20.0, 3)
+                step = rng.uniform(0.02, 2.0, 3) * rng.choice((-1.0, 1.0), 3)
+                st = st0._replace(mu_auv_odom=torch.tensor(pos - step, **f32))
+                v = torch.tensor(np.concatenate([pos, quat_from_rpy_np(np.asarray(rpy)),
+                                                 rng.normal(0.0, 1.0, 6)]), **f32)
+                got = K2.online_predict(st, v, params)
+                want = S.predict(st, odom_pose(v), params)
+                torch.cuda.synchronize()
+                for name, a, b in (("mu position", got.mu[0:3], want.mu[0:3]),
+                                   ("mu landmarks", got.mu[6:], want.mu[6:]),
+                                   ("mu_auv_odom", got.mu_auv_odom, want.mu_auv_odom)):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"K15 L={L} {rpy}: {name} not bitwise the twin")
+                w = want.mu[3:6].cpu().numpy()
+                ulp = float((np.abs(got.mu[3:6].cpu().numpy().astype(np.float64) - w)
+                             / np.spacing(np.abs(w))).max())
+                if ulp > 2.0:
+                    raise AssertionError(f"K15 L={L} {rpy}: attitude {ulp:.1f} ulp")
+                att_ulp = max(att_ulp, ulp)
+                rel, err = k15_sigma_check(got.Sigma, want.Sigma)
+                sigma_rel, sigma_err = max(sigma_rel, rel), max(sigma_err, err)
+
+        def k15():
+            return K2.online_predict(st, v, params)
+
+        def plain():
+            return S.predict(st, odom_pose(v), params)
+
+        n0 = K2.online_predict.launches
+        host_ms = wall_ms(k15, 200)
+        if K2.online_predict.launches - n0 != 201:
+            raise AssertionError(f"K15 L={L}: {K2.online_predict.launches - n0} launches for "
+                                 f"201 calls")
+        plain_host_ms = wall_ms(plain, 200)
+        ms = device_ms(k15, 30, "online_predict_kernel")
+        plain_dev_ms = call_device_ms(plain, 30)
+        # float work: A Σ[0:6, :], 72 a column; (A Σ00) Aᵀ, 864
+        bnd = bound(nbytes(st.mu, st.Sigma, st.mu_auv_odom, v, params.R, got.mu, got.Sigma,
+                           got.mu_auv_odom), 72 * D + 864)
+        res[L] = dict(err=sigma_err, rel=sigma_rel, attitude_ulp=att_ulp, ms=ms, host_ms=host_ms,
+                      plain_host_ms=plain_host_ms, plain_ms=plain_dev_ms, bound=bnd, D=D)
+        print(f"K15 online_predict L={L} D={D}: mu position, mu_auv_odom, Sigma's attitude "
+              f"rows and columns and Sigma past the pose bitwise, attitude {att_ulp:.1f} ulp, "
+              f"Sigma position rows {sigma_rel:.3e} of their block ({sigma_err:.3e} abs); "
+              f"device "
+              f"{ms * 1e3:.2f} us (twin {plain_dev_ms * 1e3:.2f} us of device work a call), host "
+              f"{host_ms * 1e3:.1f} us a call back to back against the twin's "
+              f"{plain_host_ms * 1e3:.1f} us; one launch a call; bound {bnd[0] * 1e3:.2f} us "
+              f"({bnd[1]})", flush=True)
+    return res
+
+
 def main():
     import torch
 
@@ -2601,6 +2731,7 @@ def main():
     from smarc_navigation_tpu_torch.models import ekf_slam as S
     from smarc_navigation_tpu_torch.ops import slam_da_kernels as K1
     from smarc_navigation_tpu_torch.ops import slam_kernels as K2
+    from smarc_navigation_tpu_torch.utils.geometry import odom_pose
 
     # --- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -2634,7 +2765,7 @@ def main():
     st, _ = S.run_fleet(tl.map(lambda x: x[:, :T_WARM]), params, cfg)
     band = S.initial_band(st.Sigma, L).contiguous()
     odom = tl.channels["odom"]
-    pose_t = S._odom_pose(odom.value[:, T_WARM]).contiguous()
+    pose_t = odom_pose(odom.value[:, T_WARM]).contiguous()
     valid_t = odom.valid[:, T_WARM].contiguous()
     st_p, a8 = S._fleet_predict(st, pose_t, valid_t, params)
     ev = tl.events["mbes"]
@@ -2794,9 +2925,16 @@ def main():
     k = int(next(i for i in range(T - 1, 0, -1) if mask0[i].any()))
     st0 = S.SlamState(*(x[0].contiguous() for x in final))
     tick = tl.map(lambda x: x[0, k])
-    s_k, o_k = S.step(cfg, params, st0, tick)                        # auto -> K1 + K2
+    n15 = K2.online_predict.launches
+    s_k, o_k = S.step(cfg, params, st0, tick)                        # auto -> K15, K1 + K2
     step_launches = {f.__name__: f.launches - launches[f.__name__] for f in counters}
-    s_p, o_p = S.step(cfg, params, st0, tick, update_mode="full")    # plain dense
+    step_launches["online_predict"] = K2.online_predict.launches - n15
+    real_predict = K2.online_predict
+    K2.online_predict = lambda st, v, p: S.predict(st, odom_pose(v), p)
+    try:
+        s_p, o_p = S.step(cfg, params, st0, tick, update_mode="full")  # twin, plain dense
+    finally:
+        K2.online_predict = real_predict
     torch.cuda.synchronize()
     if not torch.equal(o_k["matched_mbes"], o_p["matched_mbes"]):
         raise AssertionError("step: matched_mbes differs between K1 + K2 and the dense path")
@@ -2804,10 +2942,12 @@ def main():
     if err > tol:
         raise AssertionError(f"step: mu differs by {err:.3e} > {tol:.3e}")
     if (step_launches["da_lanes"], step_launches["sequential_update_fleet"],
-            step_launches["symmetric_downdate"], step_launches["sequential_update"]) != (1, 1, 1, 0):
-        raise AssertionError(f"step: launches {step_launches}, expected K1, K2 and K12 once")
+            step_launches["symmetric_downdate"], step_launches["sequential_update"],
+            step_launches["online_predict"]) != (1, 1, 1, 0, 1):
+        raise AssertionError(f"step: launches {step_launches}, expected K15, K1, K2 and K12 once")
     print(f"step (mission 0, tick {k}): matched {o_k['matched_mbes'].tolist()}, "
           f"mu err vs dense {err:.3e}; launches {step_launches}", flush=True)
+    k15 = k15_phase(dev)
     g_head["share"] = device_share(lambda: S.run_fleet(tl, params, cfg),
                                    {"da_kernel": T, "phase1_kernel": T, "downdate_kernel": T},
                                    ms, "headline run_fleet (graphed)")
@@ -2959,6 +3099,17 @@ def main():
                                 "slam-pf-fleet128": spf_launch["symmetric_downdate"],
                                 **{p: cli[p]["symmetric_downdate"]
                                    for p in ("cli-replay", "cli-demo", "chunked-replay")}}),
+        # K15, the online step's predict (no TPU kernel: the JAX package
+        # leaves it to XLA), at L=64 with its L=256 numbers; launches: the
+        # CLI's replay, one a tick
+        dict(entry("online_predict", "slam_predict.cu", "", cli["cli-replay"]["online_predict"],
+                   k15[64]["err"], k15[64]["ms"], k15[64]["plain_ms"], k15[64]["bound"],
+                   attitude_ulp=max(r["attitude_ulp"] for r in k15.values()),
+                   sigma_block_rel=max(r["rel"] for r in k15.values()),
+                   host_ms=k15[64]["host_ms"], plain_host_ms=k15[64]["plain_host_ms"],
+                   L256={x: (k15[256][x] if x != "bound" else k15[256][x][0])
+                         for x in ("err", "ms", "host_ms", "plain_host_ms", "plain_ms", "bound")}),
+             replaces=None),
         # K9 at the loc-fleet64 replay's shape; K10 in the local wiring of
         # the ekf15-fleet64 replay (its dual replay launches it 2T times)
         entry("fleet_tick", "loc_tick.cu", "loc_kernels.py:326", fl_launch["loc64"],

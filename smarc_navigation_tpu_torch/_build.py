@@ -29,12 +29,13 @@ BUILD = PKG / "build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-library extra flags: the DA kernel's gate/cost arithmetic, the PF
-# kernels' motion, jitter, generator and GPS-weight arithmetic and the two filter tick
-# kernels round every product (no FMA contraction), like the plain PyTorch
-# versions' elementwise ops
+# per-library extra flags: the DA kernel's gate/cost arithmetic, the online
+# predict's pose and Jacobian, the PF kernels' motion, jitter, generator and
+# GPS-weight arithmetic and the two filter tick kernels round every product
+# (no FMA contraction), like the plain PyTorch versions' elementwise ops
 EXTRA_FLAGS = {"slam_da": ["-fmad=false"], "slam_update": [], "slam_downdate": [],
-               "slam_marginal": [], "pf_predict": ["-fmad=false"],
+               "slam_marginal": [], "slam_predict": ["-fmad=false"],
+               "pf_predict": ["-fmad=false"],
                "pf_resample": ["-fmad=false"], "pf_update": ["-fmad=false"],
                "loc_tick": ["-fmad=false"],
                "ekf15_tick": ["-fmad=false"]}

@@ -9,7 +9,8 @@ and shapes. The fleet replay ``run_fleet`` is a Python loop over ticks whose
 every event pass runs the data-association kernel (K1,
 ``ops.slam_da_kernels.da_lanes``) and the sequential-update kernel (K2,
 ``ops.slam_kernels.sequential_update_fleet``: phase 1 + the tiled
-downdate K12). ``step`` on CUDA state runs each of its passes as the same
+downdate K12). ``step`` on CUDA state predicts in one launch (K15,
+``ops.slam_kernels.online_predict``) and runs each of its passes as the same
 K1 + K2 on views of the one mission with a leading axis of 1;
 ``data_associate_update``'s kernel branch runs K3
 (``ops.slam_kernels.sequential_update``). ``_update_path`` decides which
@@ -44,7 +45,8 @@ from ..ops import assignment, slam_da_kernels, slam_kernels
 from ..ops.timeline import build_timeline
 from ..parallel import mesh as mesh_lib
 from ..utils import graphs, trace
-from ..utils.geometry import Transform, rotmat_from_rpy, rpy_from_quat, wrap_angle
+from ..utils.geometry import (ODOM_QUAT_WIDTH, Transform, odom_pose, rotmat_from_rpy,
+                              rpy_from_quat, wrap_angle)
 from ..utils.linalg import chi2_quantile, inv_small
 
 
@@ -539,14 +541,6 @@ def da_commit(
 # full tick + replay
 # ---------------------------------------------------------------------------
 
-def _odom_pose(value: torch.Tensor) -> torch.Tensor:
-    """6-dim pose track, or the 13-dim nav_msgs-style [pos3, quat4, linvel3,
-    angvel3] layout converted to [pos3, rpy3]."""
-    if value.shape[-1] >= 13:
-        return torch.cat([value[..., 0:3], rpy_from_quat(value[..., 3:7])], dim=-1)
-    return value[..., 0:6]
-
-
 def step(
     cfg: EKFSlamConfig,
     params: SlamParams,
@@ -559,6 +553,9 @@ def step(
     then run a DA pass per sensor whose burst is non-empty (a host-side
     branch: one sync per sensor per tick).
 
+    The predict is ``slam_kernels.online_predict``: on CUDA state one launch
+    of K15, on CPU state ``predict`` after ``odom_pose``.
+
     On CUDA state with the device solver in the kernel mode (``"auto"``,
     ``"kernel"`` or ``"pallas"``), each pass is the fleet's pair of kernels
     on B=1 views of the state (``_lanes_step_pass``: K1, whose JV runs on
@@ -568,7 +565,7 @@ def step(
     with trace.span("slam.step"):
         odom = tick.channels["odom"]
         with trace.span("slam.predict"):
-            pred = predict(state, _odom_pose(odom.value), params)
+            pred = slam_kernels.online_predict(state, odom.value, params)
 
         def run_pass(st, ev, sensor):
             if bool(ev.mask.any()):
@@ -791,7 +788,7 @@ def _fleet_inputs(tl):
     events: (odom poses, validity, event sensor names, {name: (z, mask)});
     an event counts only where the odometry is valid."""
     odom = tl.channels["odom"]
-    odom_pose_t = _odom_pose(odom.value).transpose(0, 1).contiguous()   # (T,B,6)
+    odom_pose_t = odom_pose(odom.value).transpose(0, 1).contiguous()    # (T,B,6)
     valid_t = odom.valid.transpose(0, 1).contiguous()                   # (T,B)
     names = [n for n in ("mbes", "fls") if n in tl.events]
     ev_t = {n: (tl.events[n].value.transpose(0, 1).contiguous(),
@@ -1129,7 +1126,7 @@ def _rfc_core(tl, params, e_idx, seg_of, ev_any, cfg, names):
     B, T = od.valid.shape
     dt, dev = params.R.dtype, od.value.device
     pos = od.value[..., 0:3].to(dt)
-    if od.value.shape[-1] >= 13:
+    if od.value.shape[-1] >= ODOM_QUAT_WIDTH:
         att = wrap_angle(rpy_from_quat(od.value[..., 3:7])).to(dt)
     else:
         att = wrap_angle(od.value[..., 3:6]).to(dt)

@@ -16,6 +16,12 @@ streamed schedule.
 ``sequential_update_marginal_fleet`` (K4, ``csrc/slam_marginal.cu``) is the
 reference's own 9×9 marginal writeback on pose rows + band.
 
+``online_predict`` (K15, ``csrc/slam_predict.cu``) is the online step's
+motion predict in one launch: the odometry value to a pose, μ and the pose
+rows and columns of Σ. It replaces no TPU kernel (the JAX package leaves the
+single-mission predict to XLA); its plain twin is ``ekf_slam.predict`` after
+``utils.geometry.odom_pose``, which CPU tensors take as they are.
+
 Each wrapper has its own launch count. The plain versions of K2/K3 are the
 dense in-place full-covariance sequence of ``ekf_slam.da_commit``
 (``upd_dense``) in measurement order, preceded by ``_fleet_predict``'s Σ
@@ -32,12 +38,14 @@ import ctypes
 import torch
 
 from .. import _build, _tensors
+from ..utils.geometry import ODOM_QUAT_WIDTH, odom_pose
 from ..utils.geometry import wrap_angle
 
 _ARGTYPES = {
     "slam_update": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 18,
     "slam_downdate": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6,
     "slam_marginal": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 15,
+    "slam_predict": [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
 }
 
 
@@ -198,6 +206,50 @@ def sequential_update(
 
 
 sequential_update.launches = 0
+
+
+def online_predict(state, value: torch.Tensor, params):
+    """One online motion predict (K15) -> the predicted ``SlamState``:
+    ``ekf_slam.predict(state, odom_pose(value), params)`` in one launch
+    (csrc/slam_predict.cu), ``value`` the tick's raw odometry (a 6-wide pose
+    or the nav_msgs layout: ``odom_pose``'s rule on its width tells the
+    kernel which). μ's position, ``mu_auv_odom`` and everything past the
+    pose rows and columns come out bitwise the twin's; the attitude in
+    ``rpy_from_quat``'s order of operations with precise library functions
+    (within 2 ulp of the twin's on the card); Σ's pose rows and columns to
+    rounding (the kernel's summation order). Every input is read on the
+    device: no host sync. The outputs are fresh tensors, views of one
+    allocation; ``active`` and ``n_active`` pass through. CPU tensors take
+    the twin as they are."""
+    if state.mu.device.type == "cpu":
+        from ..models import ekf_slam
+        return ekf_slam.predict(state, odom_pose(value), params)
+    dev, f32 = state.mu.device, torch.float32
+    if dev.type != "cuda":
+        raise ValueError(f"online_predict runs on CUDA or CPU tensors, not {dev}")
+    D = state.mu.shape[0] if state.mu.dim() == 1 else -1
+    W = value.shape[0] if value.dim() == 1 else -1
+    if D < 6 or (D - 6) % 3 or W < 6:
+        raise ValueError(f"online_predict: state dim {D} is not 6 + 3L, or odometry width "
+                         f"{W} < 6")
+    c = _tensors.check
+    c(state.mu, "mu", (D,), f32, dev)
+    c(state.Sigma, "Sigma", (D, D), f32, dev)
+    c(state.mu_auv_odom, "mu_auv_odom", (3,), f32, dev)
+    c(value, "value", (W,), f32, dev)
+    c(params.R, "R", (6, 6), f32, dev)
+    out = torch.empty(D * D + D + 3, dtype=f32, device=dev)
+    P = _tensors.ptr
+    rc = _lib("slam_predict")(
+        _tensors.device_index(dev), _tensors.stream(dev), D, int(W >= ODOM_QUAT_WIDTH),
+        P(state.mu), P(state.Sigma), P(state.mu_auv_odom), P(value), P(params.R), P(out))
+    _build.check(rc, "online_predict")
+    online_predict.launches += 1
+    return state._replace(mu=out[D * D:D * D + D], Sigma=out[:D * D].view(D, D),
+                          mu_auv_odom=out[D * D + D:])
+
+
+online_predict.launches = 0
 
 
 def sequential_update_fleet_reference(

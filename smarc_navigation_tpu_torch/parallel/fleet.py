@@ -42,6 +42,7 @@ from ..models import particle_filter as pf
 from ..ops import raycast
 from ..ops.timeline import Timeline
 from ..utils import graphs
+from ..utils.geometry import odom_pose
 from . import mesh as mesh_lib
 
 
@@ -174,7 +175,7 @@ def fleet_step(
               for n in names}
     band = slam.initial_band(state.slam.Sigma, slam_cfg.max_landmarks)
     sl, _band, sl_out = slam._full_tick(
-        state.slam, band, slam._odom_pose(odom.value), odom.valid, events, slam_params, slam_cfg,
+        state.slam, band, odom_pose(odom.value), odom.valid, events, slam_params, slam_cfg,
         consts, slam.a8_consts(slam_params.R, slam_params.R.dtype))
     sl_out["sigma_diag6"] = torch.diagonal(sl.Sigma[:, 0:6, 0:6], dim1=1, dim2=2)
     pf2, pf_out = _pf_tick(pf_params, state.pf, *_pf_tick_inputs(tick_batch), pf_scheme,

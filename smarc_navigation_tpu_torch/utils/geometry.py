@@ -17,6 +17,9 @@ import numpy as np
 import torch
 
 _TWO_PI = 2.0 * math.pi
+# odometry values this wide or wider carry the nav_msgs layout [pos3,
+# quat4 (xyzw), linvel3, angvel3]; narrower ones are a [pos3, rpy3] track
+ODOM_QUAT_WIDTH = 13
 
 
 def wrap_angle(a: torch.Tensor) -> torch.Tensor:
@@ -147,6 +150,15 @@ def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
 def rpy_from_quat(q: torch.Tensor) -> torch.Tensor:
     """xyzw quaternion -> roll/pitch/yaw (tf euler_from_quaternion)."""
     return rpy_from_rotmat(rotmat_from_quat(q))
+
+
+def odom_pose(value: torch.Tensor) -> torch.Tensor:
+    """Raw odometry (..., W) -> [pos3, rpy3] (..., 6): a 6-wide pose track as
+    it is, a nav_msgs value (W >= ODOM_QUAT_WIDTH) with its quaternion
+    converted by ``rpy_from_quat``."""
+    if value.shape[-1] >= ODOM_QUAT_WIDTH:
+        return torch.cat([value[..., 0:3], rpy_from_quat(value[..., 3:7])], dim=-1)
+    return value[..., 0:6]
 
 
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -32,7 +32,7 @@ from smarc_navigation_tpu_torch.models import ekf_slam as S
 from smarc_navigation_tpu_torch.ops import timeline as ptl
 from smarc_navigation_tpu_torch.parallel import fleet
 from smarc_navigation_tpu_torch.utils.geometry import (
-    Transform, quat_from_rpy_np, rotmat_from_rpy)
+    Transform, odom_pose, quat_from_rpy_np, rotmat_from_rpy)
 
 CFG = dataclasses.replace(
     EKFSlamConfig(), max_landmarks=8, max_obs=4, mhl_dist_mbes=1.0,
@@ -269,7 +269,7 @@ def test_step_lanes_pass_is_the_kernel_mode(case, mission, sensor):
         tick = tl.slice_tick(k)
         ev = tick.events[sensor]
         if bool(ev.mask.any()):
-            pred = S.predict(st, S._odom_pose(tick.channels["odom"].value), params)
+            pred = S.predict(st, odom_pose(tick.channels["odom"].value), params)
             got, m_got = S._lanes_step_pass(pred, ev.value, ev.mask, params, CFG, spec)
             want, m_want = S.data_associate_update(pred, ev.value, ev.mask, params, CFG, spec,
                                                    update_mode="kernel")
@@ -307,7 +307,7 @@ def test_step_on_cpu_state_keeps_the_torch_pass(case, monkeypatch, solver, updat
         tick = tl.slice_tick(k)
         st, out = S.step(CFG, params, st, tick, solver, update_mode)
         odom = tick.channels["odom"]
-        new = S.predict(ref, S._odom_pose(odom.value), params)
+        new = S.predict(ref, odom_pose(odom.value), params)
         for name, spec in (("mbes", S.MBES), ("fls", S.FLS)):
             ev = tick.events[name]
             matched = torch.full(ev.mask.shape, -1, dtype=torch.int32)
